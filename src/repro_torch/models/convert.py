@@ -1,0 +1,72 @@
+"""Turn the JAX package's parameter tree into the port's model.
+
+The tree comes as numpy arrays (``jax.tree.map(np.asarray, params)``), so
+this module needs neither JAX nor ``repro``. The JAX dense family stacks
+its layers for ``lax.scan``: ``blocks/p{i}`` holds, along axis 0, the
+layers at pattern position ``i`` of every repetition ``g``, i.e. layer
+``g*P + i``; the ``n_layers % P`` remainder layers follow under
+``tail/p{i}`` as layer ``reps*P + i``. The port keeps the JAX
+``(d_in, d_out)`` layout, so no weight is transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from . import registry
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def state_from_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX tree as a flat {port parameter name: numpy array} dict."""
+    P = len(cfg.pattern)
+    reps, tail = divmod(cfg.n_layers, P)
+    state = {}
+    for name, arr in params.items():
+        if name not in ("blocks", "tail"):
+            state[name] = arr
+    for i in range(P):
+        for path, arr in _flat(params["blocks"][f"p{i}"]):
+            if arr.shape[0] != reps:
+                raise ValueError(f"blocks/p{i}/{path}: {arr.shape[0]} "
+                                 f"stacked layers, the config has {reps}")
+            for g in range(reps):
+                state[f"blocks.{g * P + i}.{path}"] = arr[g]
+    for i in range(tail):
+        for path, arr in _flat(params["tail"][f"p{i}"]):
+            state[f"blocks.{reps * P + i}.{path}"] = arr
+    return state
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes; exact through float32
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+@torch.no_grad()
+def from_jax(params: dict, cfg: ModelConfig, device=None):
+    """The port's model holding the JAX weights, on ``device``."""
+    model = registry.build_model(cfg, device)
+    state = state_from_jax(params, cfg)
+    names = dict(model.named_parameters())
+    if set(names) != set(state):
+        raise ValueError(f"parameter trees differ: only in the port "
+                         f"{sorted(set(names) - set(state))}, only in JAX "
+                         f"{sorted(set(state) - set(names))}")
+    for name, p in names.items():
+        t = _tensor(state[name])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port "
+                             f"shape {tuple(p.shape)}")
+        p.copy_(t)
+    return model

@@ -1,0 +1,324 @@
+"""Shared model building blocks (PyTorch, config-driven).
+
+Parameters are built from *leaf specs* — one source of truth giving shape
+and init scale — so random init, the JAX-weight converter and the parameter
+count all derive from the same structure. Weights keep the JAX package's
+``(d_in, d_out)`` layout and are applied as ``x @ W``.
+
+RMSNorm always goes through the RMSNorm kernel's dispatch
+(``kernels.ops.rmsnorm``); prefill attention goes through the
+flash-attention kernel's dispatch where the kernel's semantics hold (see
+``attention``). On a CPU tensor both dispatch to the plain version.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Leaf specs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Leaf:
+    shape: tuple
+    scale: float = 1.0          # stddev multiplier (fan-in scaling applied)
+
+
+class Params(nn.Module):
+    """A module whose parameters follow a spec: a ``Leaf`` becomes a
+    parameter, a dict a child ``Params``, a list a ``ModuleList`` of them.
+    Parameters are allocated uninitialised; see ``init_tree``."""
+
+    def __init__(self, spec: dict, dtype: torch.dtype, device):
+        super().__init__()
+        self.leaves = {}
+        for name, item in spec.items():
+            if isinstance(item, Leaf):
+                self.leaves[name] = item
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(item.shape, dtype=dtype, device=device),
+                    requires_grad=False))
+            elif isinstance(item, dict):
+                self.add_module(name, Params(item, dtype, device))
+            else:
+                self.add_module(name, nn.ModuleList(
+                    Params(s, dtype, device) for s in item))
+
+
+def init_leaf_(t: torch.Tensor, lf: Leaf, generator: torch.Generator):
+    fan_in = lf.shape[-2] if len(lf.shape) >= 2 else lf.shape[-1]
+    if lf.scale == 0.0:
+        t.zero_()
+    else:
+        std = lf.scale / math.sqrt(max(fan_in, 1))
+        t.copy_(torch.randn(lf.shape, generator=generator, device=t.device,
+                            dtype=torch.float32) * std)
+
+
+@torch.no_grad()
+def init_tree(module: nn.Module, generator: torch.Generator):
+    """Fill every spec'd parameter, in module order, from ``generator``."""
+    for mod in module.modules():
+        if isinstance(mod, Params):
+            for name, lf in mod.leaves.items():
+                init_leaf_(getattr(mod, name), lf, generator)
+
+
+def spec_leaves(spec):
+    """All Leafs of a spec, depth first."""
+    items = spec.values() if isinstance(spec, dict) else spec
+    for item in items:
+        if isinstance(item, Leaf):
+            yield item
+        else:
+            yield from spec_leaves(item)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps):
+    return ops.rmsnorm(x, scale, eps)
+
+
+def norm_spec(d: int) -> Leaf:
+    return Leaf((d,), scale=0.0)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, hd // 2, dtype=torch.float32,
+                                         device=device) / (hd // 2)))
+
+
+def rope_angles(positions, hd: int, theta: float):
+    """positions: (..., S) int -> (..., S, hd//2)."""
+    return positions[..., None].float() * rope_freqs(hd, theta,
+                                                     positions.device)
+
+
+def apply_rope(x, angles):
+    """x: (B, S, H, hd); angles: (B, S, hd//2)."""
+    dt = x.dtype
+    x = x.float()
+    c = torch.cos(angles)[:, :, None, :]
+    s = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional sliding window / softcap)
+# ---------------------------------------------------------------------------
+
+def attn_spec(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    spec = {
+        "wq": Leaf((d, h * hd)),
+        "wk": Leaf((d, kv * hd)),
+        "wv": Leaf((d, kv * hd)),
+        "wo": Leaf((h * hd, d)),
+    }
+    if cfg.use_bias:
+        spec["bq"] = Leaf((h * hd,), scale=0.0)
+        spec["bv"] = Leaf((kv * hd,), scale=0.0)
+        spec["bo"] = Leaf((d,), scale=0.0)
+    return spec
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int):
+    """q_pos: (Sq,), k_pos: (Sk,) -> (Sq, Sk) bool."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
+
+
+def gqa_attend(q, k, v, mask, softcap: float = 0.0):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd), mask broadcastable (B,1,Sq,Sk).
+
+    Scores in the input dtype, softmax in fp32, weights cast back to v's
+    dtype before the value product, as the JAX package does."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H * hd)
+
+
+ATTN_CHUNK = 1024       # q-block size for chunked attention
+CHUNK_THRESHOLD = 2048  # use chunked path above this sequence length
+
+
+def gqa_attend_chunked(q, k, v, q_pos, k_pos, *, causal, window,
+                       softcap: float = 0.0):
+    """Blockwise attention over q chunks with per-chunk K/V slices, so local
+    (sliding-window) layers only touch K/V inside the window of each block."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    c = min(ATTN_CHUNK, Sq)
+    outs = []
+    for s0 in range(0, Sq, c):
+        s1 = min(s0 + c, Sq)
+        lo = 0
+        hi = Sk
+        if window:
+            lo = max(0, s0 - window + 1)
+        if causal and Sk == Sq:
+            hi = s1
+        m = _mask(q_pos[s0:s1], k_pos[lo:hi], causal, window)[None, None]
+        outs.append(gqa_attend(q[:, s0:s1], k[:, lo:hi], v[:, lo:hi], m,
+                               softcap))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def attention(p, cfg: ModelConfig, x, *, window=0, angles=None):
+    """Full-sequence causal self-attention over positions 0..S-1
+    (prefill).
+
+    With no window and no softcap, attention goes to the flash-attention
+    kernel, at any S. Every other case keeps the plain path, as the JAX
+    package keeps XLA."""
+    B, S, D = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p.wq).reshape(B, S, h, hd)
+    if cfg.use_bias:
+        q = q + p.bq.reshape(1, 1, h, hd)
+    k = (x @ p.wk).reshape(B, S, kv, hd)
+    v = (x @ p.wv).reshape(B, S, kv, hd)
+    if cfg.use_bias:
+        v = v + p.bv.reshape(1, 1, kv, hd)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    if not window and not cfg.logit_softcap:
+        y = ops.flash_attention(q, k, v, causal=True).reshape(B, S, h * hd)
+    else:
+        positions = torch.arange(S, device=x.device)
+        if S > CHUNK_THRESHOLD:
+            y = gqa_attend_chunked(q, k, v, positions, positions,
+                                   causal=True, window=window,
+                                   softcap=cfg.logit_softcap)
+        else:
+            m = _mask(positions, positions, True, window)[None, None]
+            y = gqa_attend(q, k, v, m, cfg.logit_softcap)
+    y = y @ p.wo
+    if cfg.use_bias:
+        y = y + p.bo
+    return y
+
+
+def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
+                     window=0):
+    """Single-token decode. cache_{k,v}: (B, C, KV, hd). ``window`` selects
+    ring-buffer semantics (C == window) vs linear cache (C == max seq).
+
+    Unlike the JAX package, the new K/V row is written into the caches in
+    place (the returned caches are the same tensors), which saves a copy of
+    every cache at every step."""
+    B, S1, D = x.shape
+    assert S1 == 1
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    C = cache_k.shape[1]
+    q = (x @ p.wq).reshape(B, 1, h, hd)
+    if cfg.use_bias:
+        q = q + p.bq.reshape(1, 1, h, hd)
+    k_new = (x @ p.wk).reshape(B, 1, kv, hd)
+    v_new = (x @ p.wv).reshape(B, 1, kv, hd)
+    if cfg.use_bias:
+        v_new = v_new + p.bv.reshape(1, 1, kv, hd)
+    ang = rope_angles(torch.full((B, 1), pos, device=x.device), hd,
+                      cfg.rope_theta)
+    q = apply_rope(q, ang)
+    k_new = apply_rope(k_new, ang)
+    slot = pos % C if window > 0 else pos  # ring buffer vs linear cache
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+    idx = torch.arange(C, device=x.device)
+    if window > 0:
+        valid = idx < min(pos + 1, C)
+    else:
+        valid = idx <= pos
+    m = valid[None, None, None, :]
+    y = gqa_attend(q, cache_k, cache_v, m, cfg.logit_softcap)
+    y = y @ p.wo
+    if cfg.use_bias:
+        y = y + p.bo
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP (geglu / gelu)
+# ---------------------------------------------------------------------------
+
+def mlp_spec(cfg: ModelConfig, geglu: bool = True) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if geglu:
+        return {"wg": Leaf((d, f)), "wu": Leaf((d, f)), "wd": Leaf((f, d))}
+    spec = {"w1": Leaf((d, f)), "w2": Leaf((f, d))}
+    if cfg.use_bias:
+        spec["b1"] = Leaf((f,), scale=0.0)
+        spec["b2"] = Leaf((d,), scale=0.0)
+    return spec
+
+
+def mlp(p, x):
+    if hasattr(p, "wg"):
+        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+    h = x @ p.w1
+    if hasattr(p, "b1"):
+        h = h + p.b1
+    h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    y = h @ p.w2
+    if hasattr(p, "b2"):
+        y = y + p.b2
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_spec(cfg: ModelConfig) -> dict:
+    spec = {"embed": Leaf((cfg.vocab, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = Leaf((cfg.d_model, cfg.vocab))
+    return spec
+
+
+def embed(p, cfg: ModelConfig, tokens):
+    x = p.embed[tokens].to(cfg.torch_dtype)
+    if cfg.family in ("dense", "moe", "vlm"):
+        x = x * math.sqrt(cfg.d_model)  # gemma-style scaling
+    return x
+
+
+def unembed(p, cfg: ModelConfig, x):
+    w = p.embed.T if cfg.tie_embeddings else p.unembed
+    return x @ w.to(cfg.torch_dtype)
