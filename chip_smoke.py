@@ -96,6 +96,13 @@ def max_err(got, want, tol):
     return diff.max().item()
 
 
+def row_rel_err(got, want):
+    """Worst relative error of an output row: max over rows of
+    ||got - want|| / ||want|| along the last dim."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
 def phase0():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -105,7 +112,7 @@ def phase0():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build, ops
     t = time.perf_counter()
-    libs = build.build_all()
+    build.load("flash_attention")
     nvcc_s = time.perf_counter() - t
     t = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):   # Triton JIT per dtype
@@ -113,7 +120,8 @@ def phase0():
                     torch.zeros(4096, dtype=dt, device="cuda"))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t
-    print(f"build: nvcc {nvcc_s:.1f} s ({', '.join(p.name for p in libs)}), "
+    lib = build.library_path(build.CSRC / "flash_attention.cu").name
+    print(f"build: nvcc {nvcc_s:.1f} s ({lib}), "
           f"triton JIT {triton_s:.1f} s")
     return smi
 
@@ -158,8 +166,14 @@ def phase1(peaks):
             print(f"[K1 rmsnorm] {json.dumps(rec)}")
 
     # K2 flash attention: the JAX test shapes (KV = H), then yi-9b's
-    # (H=32 over KV=4). Tolerances: the JAX test's (fp32 sum order / bf16
-    # output rounding).
+    # (H=32 over KV=4). fp32: the JAX test's 2e-4 (abs + rel; summation
+    # order). bf16: the kernel and the plain version both compute in fp32
+    # and round once to bf16, so an element differs by at most about one
+    # bf16 ulp (2^-8 of itself) where the two fp32 results straddle a
+    # rounding boundary. An absolute limit would exceed the outputs
+    # themselves at long S (a causal row i averages i+1 values, std
+    # ~(i+1)^-0.5), so each output row (b, s, h) is held by its relative
+    # error ||got - want|| / ||want|| <= 1e-2, scaled to its own magnitude.
     for (B, S, H, KV, hd), timed in [((1, 128, 2, 2, 64), False),
                                      ((2, 256, 1, 1, 32), False),
                                      ((1, 64, 4, 4, 128), False),
@@ -173,15 +187,22 @@ def phase1(peaks):
                                 device="cuda").to(dt)
                 v = torch.randn((B, S, KV, hd), generator=g,
                                 device="cuda").to(dt)
-                tol = 2e-4 if dt == torch.float32 else 5e-2
                 got = fa.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
-                err = max_err(got, fa.flash_attention_plain(q, k, v,
-                                                            causal=causal),
-                              tol)
+                want = fa.flash_attention_plain(q, k, v, causal=causal)
                 rec = dict(kernel="flash_attention", shape=[B, S, H, KV, hd],
-                           causal=causal, dtype=str(dt), max_abs_err=err,
-                           tol=tol)
+                           causal=causal, dtype=str(dt))
+                if dt == torch.float32:
+                    rec["max_abs_err"] = max_err(got, want, 2e-4)
+                    rec["tol"] = 2e-4
+                else:
+                    rel = row_rel_err(got, want)
+                    check(rel <= 1e-2, f"results disagree: worst row "
+                          f"relative error {rel} beyond 1e-2")
+                    rec["max_abs_err"] = (got.float() - want.float()).abs() \
+                        .max().item()
+                    rec["row_rel_err"], rec["row_rel_tol"] = rel, 1e-2
+                del want
                 if timed:
                     it = 5 if S >= 4096 else 20
                     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))

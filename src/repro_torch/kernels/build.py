@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, at first use, under
 ``build/repro_torch_kernels/`` at the root of the checkout. The library file
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. All sources compile in
-parallel (one ``nvcc`` each). A failed build raises with nvcc's stderr.
+rebuilt and a stale library is never loaded. A failed build raises with
+nvcc's stderr.
 
 Nothing here runs at import time; the CPU tests import this module freely.
 """
@@ -39,39 +39,17 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> list:
-    """Compile every source whose library is missing, all in parallel.
-    Returns the library paths."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    libs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        lib = library_path(src)
-        libs.append(lib)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((src, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failures = []
-    for src, lib, tmp, proc in procs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {src.name} "
-                            f"(exit {proc.returncode}):\n{err}{out}")
-            continue
-        if out or err:
-            print(f"[nvcc {src.name}]\n{out}{err}", end="")
-        os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return libs
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built first if needed."""
-    path = library_path(CSRC / f"{name}.cu")
+    """The library of ``csrc/<name>.cu``, built first if it is missing."""
+    src = CSRC / f"{name}.cu"
+    path = library_path(src)
     if not path.exists():
-        build_all()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, path)
     return ctypes.CDLL(str(path))

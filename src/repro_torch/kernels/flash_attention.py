@@ -25,18 +25,18 @@ SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention_plain(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.
 
-    Softmax attention in fp32, cast to q's dtype; the plain version of the
+    Softmax attention scaled by hd**-0.5, in fp32, cast to q's dtype; the
+    plain version of the
     kernel, with the kernel's -1e30 mask."""
     B, S, H, hd = q.shape
-    scale = scale or hd ** -0.5
     G = H // k.shape[2]
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     if causal:
         mask = torch.ones((S, k.shape[1]), dtype=torch.bool,
                           device=q.device).tril()
@@ -82,11 +82,10 @@ def _check(q, k, v):
             raise ValueError("flash_attention kernel needs a contiguous last dim")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention(q, k, v, *, causal: bool = True):
     """Launch the kernel. q: (B, S, H, hd); k, v: (B, S, KV, hd), on CUDA."""
     _check(q, k, v)
     B, S, H, hd = q.shape
-    scale = scale or hd ** -0.5
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
     err = lib.repro_flash_attention_fwd(
@@ -96,7 +95,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
-        float(scale), int(bool(causal)),
+        hd ** -0.5, int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "

@@ -25,11 +25,11 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _rn.rmsnorm_plain(x, scale, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
     if _route(q, "flash_attention"):
-        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
-    return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return _fa.flash_attention(q, k, v, causal=causal)
+    return _fa.flash_attention_plain(q, k, v, causal=causal)
 
 
 def launch_counts() -> dict:

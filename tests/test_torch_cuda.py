@@ -52,9 +52,14 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, causal, B, S, H, KV,
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == n0 + 1
-    want = tfa.flash_attention_plain(q, k, v, causal=causal)
-    tol = 2e-4 if dtype == torch.float32 else 5e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    else:
+        # both round one fp32 result to bf16: about one ulp (2^-8) apart
+        # where they differ, so each row is held relative to its own norm
+        rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+        assert rel.max().item() <= 1e-2
 
 
 @pytest.mark.cuda
