@@ -4,25 +4,35 @@
     python3 chip_smoke.py
 
 Phase 0 prints the card and its power limit, builds the CUDA kernels with
-nvcc (sm_90a) and JIT-compiles the Triton kernel. Phase 1 holds each kernel
-against its plain PyTorch version on the card, at the JAX kernel tests'
-shapes and at yi-9b's own, in float32 and bfloat16, and times the kernel,
-the plain version and one PyTorch library call beside the card's bound;
-it also holds the whole model on the card against the same model on the
-CPU at a reduced size. Phase 2 serves yi-9b at full width and depth in
-bfloat16 with random weights from a seed: parallel prefill of 4 x 256 and
-1 x 4096 tokens, sequential prefill of the 4 prompts (whose logits must
-agree with the parallel prefill's), and 32 greedy decode steps; the
-kernels' launch counters must show that this path ran both kernels.
-Phase 3 profiles one prefill and four decode steps (torch.profiler) and
-prints the device busy share and the kernels that take the most time.
+nvcc (sm_90a, one process per source, in parallel), prints ptxas's
+registers, shared memory and spills for each kernel and the count of
+HGMMA (wgmma) instructions in the bf16 attention library's SASS, which
+must not be 0, and JIT-compiles the Triton kernel. Phase 1 holds each
+kernel against its plain PyTorch version on the card, at the JAX kernel
+tests' shapes, at yi-9b's own and at gemma3-12b's global layers' (16 heads
+over 8, hd 256), in float32 and bfloat16 (attention: two routes, bf16 on
+the tensor cores and float32 scalar), and times the kernel, the plain
+version and one PyTorch library call beside the card's bound (for
+attention also the host's time to enqueue one call, 48 calls in a row as a
+forward makes them); it also
+holds the whole model on the card against the same model on the CPU at a
+reduced size. Phase 2 serves yi-9b at full width and depth in bfloat16
+with random weights from a seed: parallel prefill of 4 x 256 and 1 x 4096
+tokens, sequential prefill of the 4 prompts (whose logits must agree with
+the parallel prefill's), and 32 greedy decode steps; the kernels' launch
+counters must show that this path ran RMSNorm and the bf16 attention
+route (48 launches per prefill, 144 in all) and never the float32 route.
+Phase 3 profiles the two prefills and four decode steps (torch.profiler)
+and prints the device busy share and the kernels that take the most time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record. Any failure raises and exits non-zero, and the
 script exits non-zero without a CUDA device.
 """
 import copy
+import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -44,10 +54,12 @@ PEAKS = {
 }
 
 B_PROMPT, S_PROMPT, S_LONG, N_DECODE = 4, 256, 4096, 32
+N_LAYERS = 48                          # yi-9b
+BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
-# two paths round at different places (fp32 P in the flash kernel vs bf16 P
-# in the decode attention, GEMM vs GEMV summation order) and the error
-# compounds over 48 residual layers. bf16's unit roundoff is 2^-8 = 3.9e-3;
+# two paths round at different places (the flash kernel's tiled online
+# softmax vs the decode attention's one pass, GEMM vs GEMV summation order)
+# and the error compounds over 48 residual layers. bf16's unit roundoff is 2^-8 = 3.9e-3;
 # allow ~13 of it in relative RMS over all logits.
 SEQ_VS_PAR_REL_RMS = 5e-2
 
@@ -86,6 +98,22 @@ def time_ms(fn, iters, flush):
     return total / iters
 
 
+def host_us(fn, calls=N_LAYERS):
+    """Host wall time per call, in us, of ``calls`` back-to-back calls with
+    no synchronization between them: what the host spends to enqueue one
+    call. A ~10 ms device sleep queued first keeps the card busy meanwhile,
+    so the card's own pace does not block the host."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def max_err(got, want, tol):
     """max |got - want|; fails unless |got - want| <= tol + tol * |want|."""
     got, want = got.float(), want.float()
@@ -103,6 +131,17 @@ def row_rel_err(got, want):
     return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
 
 
+def cuobjdump():
+    """The toolkit's cuobjdump, or the copy that Triton's package carries."""
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
+        / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    import triton
+    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+               / "cuobjdump")
+
+
 def phase0():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -112,16 +151,28 @@ def phase0():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build, ops
     t = time.perf_counter()
-    build.load("flash_attention")
+    libs = build.build()
     nvcc_s = time.perf_counter() - t
+    for name, path in libs.items():
+        smem_bytes = getattr(ctypes.CDLL(str(path)), f"repro_{name}_smem_bytes")
+        smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+        smem = {hd: smem_bytes(hd) for hd in (32, 64, 128, 256)}
+        print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}\n"
+              f"[smem] {name}: dynamic shared memory a block, by head dim: "
+              f"{smem}")
+    sass = subprocess.run([cuobjdump(), "-sass", str(libs[BF16_LIB])],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    print(f"[sass] {libs[BF16_LIB].name}: {hgmma} HGMMA instructions")
+    check(hgmma > 0, "the bf16 attention library has no wgmma (HGMMA)")
     t = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):   # Triton JIT per dtype
         ops.rmsnorm(torch.ones(2, 4096, dtype=dt, device="cuda"),
                     torch.zeros(4096, dtype=dt, device="cuda"))
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t
-    lib = build.library_path(build.CSRC / "flash_attention.cu").name
-    print(f"build: nvcc {nvcc_s:.1f} s ({lib}), "
+    print(f"build: nvcc {nvcc_s:.1f} s (both sources at once), "
           f"triton JIT {triton_s:.1f} s")
     return smi
 
@@ -165,22 +216,28 @@ def phase1(peaks):
             records.append(rec)
             print(f"[K1 rmsnorm] {json.dumps(rec)}")
 
-    # K2 flash attention: the JAX test shapes (KV = H), then yi-9b's
-    # (H=32 over KV=4). fp32: the JAX test's 2e-4 (abs + rel; summation
-    # order). bf16: the kernel and the plain version both compute in fp32
-    # and round once to bf16, so an element differs by at most about one
-    # bf16 ulp (2^-8 of itself) where the two fp32 results straddle a
-    # rounding boundary. An absolute limit would exceed the outputs
-    # themselves at long S (a causal row i averages i+1 values, std
-    # ~(i+1)^-0.5), so each output row (b, s, h) is held by its relative
-    # error ||got - want|| / ||want|| <= 1e-2, scaled to its own magnitude.
-    for (B, S, H, KV, hd), timed in [((1, 128, 2, 2, 64), False),
-                                     ((2, 256, 1, 1, 32), False),
-                                     ((1, 64, 4, 4, 128), False),
-                                     ((4, 256, 32, 4, 128), True),
-                                     ((1, 4096, 32, 4, 128), True)]:
+    # K2 flash attention, both routes (bf16: tensor cores; float32:
+    # scalar): the JAX test shapes (KV = H), then yi-9b's (H=32 over KV=4),
+    # then gemma3-12b's global layers' (16 over 8, hd 256; bf16 only).
+    # fp32: the JAX test's 2e-4 (abs + rel; summation order). bf16: the
+    # kernel rounds P to bf16 before P @ V and both it and the plain
+    # version round the output to bf16, so an element differs by a few
+    # bf16 ulps (2^-8 of itself) at most (worst row ~4e-3 in the CPU
+    # emulation, tests/test_torch_kernels.py). An absolute limit would
+    # exceed the outputs themselves at long S (a causal row i averages i+1
+    # values, std ~(i+1)^-0.5), so each output row (b, s, h) is held by its
+    # relative error ||got - want|| / ||want|| <= 1e-2, scaled to its own
+    # magnitude.
+    both, bf16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
+    for (B, S, H, KV, hd), timed, dts in [
+            ((1, 128, 2, 2, 64), False, both),
+            ((2, 256, 1, 1, 32), False, both),
+            ((1, 64, 4, 4, 128), False, both),
+            ((4, 256, 32, 4, 128), True, both),
+            ((1, 4096, 32, 4, 128), True, both),
+            ((1, 2048, 16, 8, 256), True, bf16)]:
         for causal in (True, False):
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dts:
                 q = torch.randn((B, S, H, hd), generator=g,
                                 device="cuda").to(dt)
                 k = torch.randn((B, S, KV, hd), generator=g,
@@ -190,8 +247,9 @@ def phase1(peaks):
                 got = fa.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 want = fa.flash_attention_plain(q, k, v, causal=causal)
-                rec = dict(kernel="flash_attention", shape=[B, S, H, KV, hd],
-                           causal=causal, dtype=str(dt))
+                rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}",
+                           shape=[B, S, H, KV, hd], causal=causal,
+                           dtype=str(dt))
                 if dt == torch.float32:
                     rec["max_abs_err"] = max_err(got, want, 2e-4)
                     rec["tol"] = 2e-4
@@ -213,16 +271,22 @@ def phase1(peaks):
                         lambda: fa.flash_attention_plain(q, k, v,
                                                          causal=causal),
                         it, flush)
-                    rec["library_ms"] = time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=causal, enable_gqa=True),
-                        it, flush)
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    rec["library_ms"] = time_ms(sdpa, it, flush)
+                    # host cost of one call, as a forward's 48 layers pay it
+                    rec["host_us"] = host_us(
+                        lambda: fa.flash_attention(q, k, v, causal=causal))
+                    rec["library_host_us"] = host_us(sdpa)
                     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
                     rec["bound_ms"], rec["bound_by"] = bound(
                         q.element_size() * 2 * B * S * hd * (H + KV),
                         4 * hd * pairs, dt)
+                    rec["tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
+                    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
                 records.append(rec)
-                print(f"[K2 flash_attention] {json.dumps(rec)}")
+                print(f"[K2 {rec['kernel']}] {json.dumps(rec)}")
                 del q, k, v, got
     return records
 
@@ -315,14 +379,20 @@ def phase2():
         launches=counts, launches_per_prefill=per_prefill,
         rel_rms_seq_vs_par=rel_rms, top1_seq_vs_par=top1)
     print(f"[serve] {json.dumps(out)}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    return counts, model, prompts
+    check(counts["rmsnorm"] > 0, "rmsnorm was not launched on the main path")
+    check(counts["flash_attention_bf16"] == 3 * N_LAYERS,
+          f"the bf16 attention route launched "
+          f"{counts['flash_attention_bf16']} times, not 3 prefills x "
+          f"{N_LAYERS} layers")
+    check(counts["flash_attention_fp32"] == 0,
+          "the float32 attention route ran on the bf16 main path")
+    return counts, model, prompts, long_prompt
 
 
-def phase3(model, prompts):
-    """Where the time goes: torch.profiler over one B=4 x 256 prefill and
-    four B=4 decode steps; device busy share and the top kernels."""
+def phase3(model, prompts, long_prompt):
+    """Where the time goes: torch.profiler over one B=4 x 256 prefill, one
+    B=1 x 4096 prefill and four B=4 decode steps; device busy share and the
+    top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import registry
@@ -333,6 +403,8 @@ def phase3(model, prompts):
     runs = {
         "prefill 4x256": lambda: serve.prefill_logits(model,
                                                       {"tokens": prompts}),
+        "prefill 1x4096": lambda: serve.prefill_logits(
+            model, {"tokens": long_prompt}),
         "decode 4 steps, B=4": lambda: [registry.decode_step(
             model, cache, tok, i) for i in range(4)],
     }
@@ -368,21 +440,28 @@ def main():
           f"{peaks[1] / 1e12} TFLOP/s bf16, {peaks[2] / 1e12} TFLOP/s fp32")
     records = phase1(peaks)
     model_check_small()
-    counts, model, prompts = phase2()
-    phase3(model, prompts)
+    counts, model, prompts, long_prompt = phase2()
+    phase3(model, prompts, long_prompt)
 
+    # each kernel's record at the main path's shape (the float32 route at
+    # the same shape in float32: it is not on the bf16 main path)
+    attn = dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128], causal=True)
     main_path = {
         "rmsnorm": dict(shape=[B_PROMPT * S_PROMPT, 4096], dtype="torch.bfloat16"),
-        "flash_attention": dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128],
-                                causal=True, dtype="torch.bfloat16"),
+        "flash_attention_bf16": dict(attn, dtype="torch.bfloat16"),
+        "flash_attention_fp32": dict(attn, dtype="torch.float32"),
     }
+    fa_src = "src/repro/kernels/flash_attention.py:26"
     meta = {
         "rmsnorm": dict(route="triton",
                         source="src/repro_torch/kernels/rmsnorm.py",
                         replaces="src/repro/kernels/rmsnorm.py:21"),
-        "flash_attention": dict(route="cuda",
-                                source="src/repro_torch/csrc/flash_attention.cu",
-                                replaces="src/repro/kernels/flash_attention.py:26"),
+        "flash_attention_bf16": dict(
+            route="cuda", source=f"src/repro_torch/csrc/{BF16_LIB}.cu",
+            replaces=fa_src),
+        "flash_attention_fp32": dict(
+            route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces=fa_src),
     }
     kernels = []
     for name, sel in main_path.items():
@@ -393,6 +472,8 @@ def main():
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            **{k: rec[k] for k in ("tflops", "bound_share", "host_us",
+                                    "library_host_us") if k in rec},
             shape=rec["shape"], card=smi))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): online softmax, fp32 math.
+// This is the float32 route; bf16 inputs go to the tensor-core kernel in
+// flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel / flash_attention): out = softmax(q k^T * scale) v, with
@@ -9,8 +11,8 @@
 // 2*S*hd*2 bytes of K/V, far above the card's ~295 operations per byte, so
 // it is bound by arithmetic. This first version does that arithmetic as
 // scalar fp32 FMAs from shared memory (67 TFLOP/s peak outside the tensor
-// cores, not the 989 bf16 TFLOP/s of wgmma); moving the two products onto
-// tensor cores (mma.sync / wgmma with TMA staging) is later work.
+// cores). It stays scalar on purpose: TF32 tensor-core products would miss
+// the 1e-4 agreement that the float32 model checks hold the card to.
 //
 // Design. One block of 128 threads per (q tile of BQ rows, head, batch).
 // The Q tile is staged once in shared memory as fp32, pre-scaled. The block
@@ -32,7 +34,6 @@
 // C entry: repro_flash_attention_fwd, launched on the caller's stream; it
 // allocates nothing and returns cudaGetLastError() of the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,15 +45,9 @@ constexpr float kNegInf = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Copy `rows` x HD elements starting at sequence position `s0` into a
 // shared tile with row pitch HD + 1, as fp32 times `mul`; rows at or past S
@@ -203,6 +198,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Dynamic shared memory of one block: Q, K-or-V and P tiles in fp32.
+template <int HD, int BQ>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BQ * (HD + 1) + kBlockK * (HD + 1) + BQ * (kBlockK + 1));
+}
+
+// The head dims the kernel is built for, each with its q tile (BQ rows).
+#define REPRO_FA_HEAD_DIMS(X) X(32, 64) X(64, 64) X(128, 64) X(256, 32)
+
 template <typename T, int HD, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KV,
@@ -211,8 +215,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int64_t svb, int64_t svs, int64_t svh,
                    int64_t sob, int64_t sos, int64_t soh,
                    float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * (HD + 1) + kBlockK * (HD + 1) + BQ * (kBlockK + 1));
+  const size_t smem = smem_bytes<HD, BQ>();
   auto kern = flash_fwd_kernel<T, HD, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -239,10 +242,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
                                skh, svb, svs, svh, sob, sos, soh, scale, causal, \
                                stream);
   switch (hd) {
-    REPRO_FA_CASE(32, 64)
-    REPRO_FA_CASE(64, 64)
-    REPRO_FA_CASE(128, 64)
-    REPRO_FA_CASE(256, 32)
+    REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)
     default:
       return cudaErrorInvalidValue;
   }
@@ -251,9 +251,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements.
+// float32 only. Strides are in elements.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o,
     int B, int S, int H, int KV, int hd,
     int64_t sqb, int64_t sqs, int64_t sqh,
     int64_t skb, int64_t sks, int64_t skh,
@@ -262,20 +262,25 @@ extern "C" int repro_flash_attention_fwd(
     float scale, int causal, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh,
-                             svb, svs, svh, sob, sos, soh, scale, causal, st);
-  else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb,
-                                     sks, skh, svb, svs, svh, sob, sos, soh, scale,
-                                     causal, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_hd<float>(hd, q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks,
+                                 skh, svb, svs, svh, sob, sos, soh, scale, causal,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Bytes of dynamic shared memory a block takes at head dim `hd` (0 for a
+// head dim the kernel is not built for).
+extern "C" int repro_flash_attention_smem_bytes(int hd) {
+#define REPRO_FA_SMEM(HD_, BQ_) \
+  case HD_:                     \
+    return (int)smem_bytes<HD_, BQ_>();
+  switch (hd) {
+    REPRO_FA_HEAD_DIMS(REPRO_FA_SMEM)
+    default:
+      return 0;
+  }
+#undef REPRO_FA_SMEM
 }

@@ -1,10 +1,20 @@
 """Flash-attention forward for Hopper (CUDA C++), beside its plain version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``_flash_kernel`` / ``flash_attention``). The kernel itself, with the note
-on what bounds it on the card and how its design answers that, is
-``repro_torch/csrc/flash_attention.cu``; this module binds it with ctypes
-(built by ``kernels/build.py``) and holds the plain PyTorch version.
+(``_flash_kernel`` / ``flash_attention``). Two kernels, chosen by dtype
+(neither is a fallback for the other):
+
+- bf16: ``repro_torch/csrc/flash_attention_sm90.cu``, both products on
+  ``wgmma`` tensor cores with K/V tiles fed by TMA. TMA reads q/k/v through
+  tensor maps, so each needs a 16-byte aligned base and strides of whole
+  16 bytes; other input raises ``ValueError`` (``tma_problem``).
+- float32: ``repro_torch/csrc/flash_attention.cu``, scalar fp32 FMAs, which
+  keep the float32 model within 1e-4 of the CPU where TF32 would not.
+
+Each source holds the note on what bounds it on the card and how its design
+answers that. This module binds both with ctypes (built by
+``kernels/build.py``), counts each route's launches, and holds the plain
+PyTorch version.
 
 Unlike the Pallas wrapper, K/V may carry fewer heads than Q (GQA: query head
 ``h`` reads KV head ``h // (H // KV)``, the ``jnp.repeat`` /
@@ -21,8 +31,10 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+TMA_ALIGN = 16          # bytes: TMA's base-address and stride granule
+TMA_MAX_STRIDE = 2**40  # bytes
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
@@ -45,63 +57,123 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
 
 
+def tma_strides(shape, strides) -> tuple[int, int, int]:
+    """The (batch, seq, head) strides, in elements, that a tensor map is
+    given for a (B, S, heads, hd) operand. A dimension of size 1 is never
+    stepped over, so its stride, whatever it is, becomes hd."""
+    return tuple(st if n > 1 else shape[3]
+                 for n, st in zip(shape[:3], strides[:3]))
+
+
+def tma_problem(shape, strides, data_ptr: int):
+    """Why TMA cannot read a bf16 (B, S, heads, hd) operand with a
+    contiguous last dim, these strides (in elements) and this base address,
+    or None if it can."""
+    if data_ptr % TMA_ALIGN:
+        return f"base address {data_ptr:#x} is not {TMA_ALIGN}-byte aligned"
+    for dim, st in zip("BSH", tma_strides(shape, strides)):
+        nbytes = st * 2  # bytes of a bf16 element
+        if nbytes % TMA_ALIGN or not 0 < nbytes < TMA_MAX_STRIDE:
+            return (f"stride {st} of dim {dim} is {nbytes} bytes, not a "
+                    f"positive multiple of {TMA_ALIGN} below 2**40")
+    return None
+
+
+def kernel_route(dtype, q_shape, q_strides, q_ptr, kv_shape, kv_layouts):
+    """The route ("bf16" or "fp32") that launches for these operands;
+    raises ValueError or TypeError naming why no kernel takes them.
+
+    ``kv_layouts`` is ``((k_strides, k_ptr), (v_strides, v_ptr))``. A pure
+    function of shapes, strides, addresses and dtype."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention kernel supports one dtype of "
+                        f"{list(ROUTES)}, got {dtype}")
+    if len(q_shape) != 4 or len(kv_shape) != 4:
+        raise ValueError(f"bad shapes q{tuple(q_shape)} k/v{tuple(kv_shape)}")
+    B, S, H, hd = q_shape
+    if kv_shape[0] != B or kv_shape[1] != S or kv_shape[3] != hd \
+            or H % kv_shape[2]:
+        raise ValueError(f"q{tuple(q_shape)} and k/v{tuple(kv_shape)} must "
+                         "share B, S and hd, with H a multiple of KV")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    layouts = [("q", q_shape, q_strides, q_ptr)] + [
+        (name, kv_shape, st, ptr) for name, (st, ptr) in zip("kv", kv_layouts)]
+    for name, shape, strides, _ in layouts:
+        if strides[3] != 1:
+            raise ValueError(f"flash_attention kernel needs a contiguous last "
+                             f"dim ({name} has stride {strides[3]})")
+    route = ROUTES[dtype]
+    if route == "bf16":
+        for name, shape, strides, ptr in layouts:
+            why = tma_problem(shape, strides, ptr)
+            if why:
+                raise ValueError(f"bf16 flash_attention kernel cannot read "
+                                 f"{name} through TMA: {why}")
+    return route
+
+
 @functools.cache
-def _lib():
-    lib = build.load("flash_attention")
-    fn = lib.repro_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+def _lib(name):
+    lib = build.load(name)
+    fn = getattr(lib, f"repro_{name}_fwd")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, fn
 
 
-def _check(q, k, v):
+def _launch(name, q, k, v, causal, strides):
+    B, S, H, hd = q.shape
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lib, fn = _lib(name)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, S, H, k.shape[2], hd, *strides(q), *strides(k), *strides(v),
+             *out.stride()[:3], hd ** -0.5, int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.repro_cuda_error_string(err).decode()})")
+    return out
+
+
+def flash_attention_bf16(q, k, v, *, causal: bool = True):
+    """The tensor-core kernel; operands already checked by ``kernel_route``."""
+    out = _launch("flash_attention_sm90", q, k, v, causal,
+                  lambda t: tma_strides(t.shape, t.stride()))
+    flash_attention_bf16.launches += 1
+    return out
+
+
+def flash_attention_fp32(q, k, v, *, causal: bool = True):
+    """The scalar kernel; operands already checked by ``kernel_route``."""
+    out = _launch("flash_attention", q, k, v, causal,
+                  lambda t: t.stride()[:3])
+    flash_attention_fp32.launches += 1
+    return out
+
+
+flash_attention_bf16.launches = 0
+flash_attention_fp32.launches = 0
+KERNELS = {"bf16": flash_attention_bf16, "fp32": flash_attention_fp32}
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Launch the kernel of q's dtype. q: (B, S, H, hd); k, v: (B, S, KV, hd),
+    on one CUDA device."""
     if not (q.device.type == k.device.type == v.device.type == "cuda") \
             or not (q.device == k.device == v.device):
         raise ValueError("flash_attention kernel needs CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in SUPPORTED_DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention kernel supports one dtype of "
-                        f"{list(SUPPORTED_DTYPES)}, got {q.dtype}, {k.dtype}, "
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)}")
-    B, S, H, hd = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd \
-            or H % k.shape[2]:
-        raise ValueError(f"q{tuple(q.shape)} and k/v{tuple(k.shape)} must "
-                         "share B, S and hd, with H a multiple of KV")
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
-    for t in (q, k, v):
-        if t.stride(-1) != 1:
-            raise ValueError("flash_attention kernel needs a contiguous last dim")
-
-
-def flash_attention(q, k, v, *, causal: bool = True):
-    """Launch the kernel. q: (B, S, H, hd); k, v: (B, S, KV, hd), on CUDA."""
-    _check(q, k, v)
-    B, S, H, hd = q.shape
-    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    lib = _lib()
-    err = lib.repro_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        SUPPORTED_DTYPES[q.dtype], B, S, H, k.shape[2], hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        hd ** -0.5, int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
-                           f"({lib.repro_cuda_error_string(err).decode()})")
-    flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
+    if k.shape != v.shape:
+        raise ValueError(f"k{tuple(k.shape)} and v{tuple(v.shape)} differ")
+    route = kernel_route(q.dtype, q.shape, q.stride(), q.data_ptr(), k.shape,
+                         ((k.stride(), k.data_ptr()),
+                          (v.stride(), v.data_ptr())))
+    return KERNELS[route](q, k, v, causal=causal)

@@ -2,13 +2,16 @@
 
 A CPU tensor goes to the kernel's plain version. A CUDA tensor goes to the
 kernel, which launches or raises: there is no fallback. Any other device
-raises. Each kernel wrapper counts its launches (``launch_counts``)."""
+raises. Each kernel wrapper counts its launches (``launch_counts``); the
+attention kernel has one count per route (bf16 on tensor cores, fp32
+scalar) and ``flash_attention`` is their sum."""
 from __future__ import annotations
 
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
 
-_KERNELS = {"rmsnorm": _rn.rmsnorm, "flash_attention": _fa.flash_attention}
+_KERNELS = {"rmsnorm": _rn.rmsnorm,
+            **{f"flash_attention_{r}": fn for r, fn in _fa.KERNELS.items()}}
 
 
 def _route(t, name):
@@ -33,7 +36,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _KERNELS.items()}
+    counts = {name: fn.launches for name, fn in _KERNELS.items()}
+    counts["flash_attention"] = sum(fn.launches for fn in _fa.KERNELS.values())
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -37,6 +37,28 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype):
                                atol=tol, rtol=tol)
 
 
+def _qkv(device, B, S, H, KV, hd, dtype, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(B, S, n, hd, generator=g, device=device).to(dtype)
+                 for n in (H, KV, KV))
+
+
+def _assert_close(got, q, k, v, causal):
+    want = tfa.flash_attention_plain(q, k, v, causal=causal).float()
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    else:
+        # the bf16 kernel rounds P to bf16 before P @ V and both sides round
+        # the output to bf16 (worst row ~4e-3 in the CPU emulation), so each
+        # row is held relative to its own norm
+        rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+        assert rel.max().item() <= 1e-2
+
+
+def _launches(dtype):
+    return tfa.KERNELS[tfa.ROUTES[dtype]].launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -44,22 +66,92 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype):
                                          (1, 130, 4, 1, 32), (1, 96, 2, 1, 256)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, causal, B, S, H, KV,
                                     hd):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    q = torch.randn(B, S, H, hd, generator=g, device=cuda_device).to(dtype)
-    k = torch.randn(B, S, KV, hd, generator=g, device=cuda_device).to(dtype)
-    v = torch.randn(B, S, KV, hd, generator=g, device=cuda_device).to(dtype)
-    n0 = tfa.flash_attention.launches
+    q, k, v = _qkv(cuda_device, B, S, H, KV, hd, dtype)
+    n0 = _launches(dtype)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == n0 + 1
-    want = tfa.flash_attention_plain(q, k, v, causal=causal).float()
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
-    else:
-        # both round one fp32 result to bf16: about one ulp (2^-8) apart
-        # where they differ, so each row is held relative to its own norm
-        rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
-        assert rel.max().item() <= 1e-2
+    assert _launches(dtype) == n0 + 1
+    _assert_close(got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 300])
+def test_flash_bf16_ragged_lengths(cuda_device, S, hd, causal):
+    """No S divides the tiles (128 query rows, 128 or 64 keys)."""
+    q, k, v = _qkv(cuda_device, 2, S, 4, 2, hd, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _assert_close(got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_bf16_gqa_groups(cuda_device, group, hd, causal):
+    q, k, v = _qkv(cuda_device, 1, 200, 8, 8 // group, hd, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _assert_close(got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_reads_views_of_a_packed_qkv(cuda_device, dtype, hd):
+    """q, k, v as strided views of one (B, S, H + 2 KV, hd) tensor."""
+    B, S, H, KV = 2, 150, 8, 2
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn(B, S, H + 2 * KV, hd, generator=g,
+                      device=cuda_device).to(dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(got, q.contiguous(), k.contiguous(), v.contiguous(), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_head_major_views(cuda_device, dtype):
+    """(B, H, S, hd) tensors seen as (B, S, H, hd): the head stride exceeds
+    the sequence stride."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(2, n, 100, 64, generator=g, device=cuda_device)
+               .to(dtype).transpose(1, 2) for n in (8, 2, 2))
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(got, q.contiguous(), k.contiguous(), v.contiguous(), True)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_refuses_what_tma_cannot_read(cuda_device):
+    """A head stride of 68 bf16 (136 bytes) raises; nothing falls back to
+    the scalar kernel or the plain version."""
+    q = torch.randn(1, 64, 4, 68, device=cuda_device).bfloat16()[..., :64]
+    k = torch.randn(1, 64, 2, 64, device=cuda_device).bfloat16()
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts() == counts
+    # the fp32 route reads any stride with a contiguous last dim
+    got = ops.flash_attention(q.float(), k.float(), k.float())
+    torch.cuda.synchronize()
+    _assert_close(got, q.float().contiguous(), k.float(), k.float(), True)
+
+
+@pytest.mark.cuda
+def test_flash_launch_counters_per_route(cuda_device):
+    ops.reset_launch_counts()
+    for dtype, n in ((torch.bfloat16, 3), (torch.float32, 2)):
+        q, k, v = _qkv(cuda_device, 1, 40, 2, 1, 64, dtype)
+        for _ in range(n):
+            ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention_bf16"], counts["flash_attention_fp32"],
+            counts["flash_attention"]) == (3, 2, 5)
 
 
 @pytest.mark.cuda

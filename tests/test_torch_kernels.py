@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro.models import layers as jlayers
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref as tref
 from repro_torch.kernels import rmsnorm as trn
@@ -92,6 +93,137 @@ def test_flash_plain_gqa_matches_gqa_attend(causal):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
 
 
+def _flash_bf16_p(q, k, v, causal, block_k=128):
+    """The tensor-core kernel's arithmetic in plain torch: fp32 scores and
+    an online softmax over key tiles of ``block_k``, P rounded to bf16
+    before P @ V with an fp32 sum, the normaliser summed from the fp32 P,
+    and O / max(l, 1e-30) rounded to q's dtype."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    m = torch.full((B, H, S, 1), tfa.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) * hd ** -0.5
+        if causal:
+            cols = torch.arange(k0, k0 + s.shape[-1])[None, :]
+            s = s.masked_fill(cols > rows, tfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + block_k]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S", [(4, 256), (1, 1024)])
+def test_bf16_p_keeps_rows_within_the_card_limit(B, S):
+    """The bf16 kernel's one numeric change, P in bf16 before P @ V, at the
+    main path's heads (32 over 4, hd 128): the worst output row stays
+    within 5e-3 relative error of the plain version, half the 1e-2 limit
+    that the card's check holds the kernel to."""
+    H, KV, hd = 32, 4, 128
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(
+        np.float32)).bfloat16() for n in (H, KV, KV))
+    for causal in (True, False):
+        got = _flash_bf16_p(q, k, v, causal).float()
+        want = tfa.flash_attention_plain(q, k, v, causal=causal).float()
+        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        assert rel.max().item() <= 5e-3
+
+
+def _packed(B, S, H, KV, hd, dtype=torch.bfloat16):
+    """q, k, v as views of one (B, S, H + 2 KV, hd) tensor."""
+    qkv = torch.empty((B, S, H + 2 * KV, hd), dtype=dtype)
+    return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+
+
+def _route(q, k, v):
+    return tfa.kernel_route(q.dtype, q.shape, q.stride(), q.data_ptr(),
+                            k.shape, ((k.stride(), k.data_ptr()),
+                                      (v.stride(), v.data_ptr())))
+
+
+def _views(dtype, B=2, S=40, H=8, KV=2, hd=64):
+    return tuple(torch.empty((B, S, n, hd), dtype=dtype) for n in (H, KV, KV))
+
+
+def test_kernel_route_picks_the_kernel_by_dtype():
+    assert _route(*_views(torch.bfloat16)) == "bf16"
+    assert _route(*_views(torch.float32)) == "fp32"
+    assert _route(*_packed(2, 33, 8, 2, 128)) == "bf16"
+    # a padded head stride TMA cannot step over is still fine in fp32
+    pad = torch.empty((1, 16, 4, 68))[..., :64]
+    assert _route(pad, pad, pad) == "fp32"
+    with pytest.raises(TypeError, match="float16"):
+        _route(*_views(torch.float16))
+
+
+@pytest.mark.parametrize("make, why", [
+    # head stride 68 bf16 = 136 bytes: not a multiple of 16
+    (lambda: torch.empty((1, 16, 4, 68), dtype=torch.bfloat16)[..., :64],
+     "stride 68 of dim H is 136 bytes"),
+    # base 2 bytes past an aligned one
+    (lambda: torch.empty(1 + 16 * 4 * 64, dtype=torch.bfloat16)[1:]
+     .view(1, 16, 4, 64), "not 16-byte aligned"),
+    (lambda: torch.empty((1, 16, 64, 4), dtype=torch.bfloat16)
+     .transpose(2, 3), "contiguous last dim"),
+])
+def test_kernel_route_refuses_what_tma_cannot_read(make, why):
+    bad = make()
+    good = torch.empty(bad.shape, dtype=torch.bfloat16)
+    for q, k, v in ((bad, good, good), (good, good, bad)):
+        with pytest.raises(ValueError, match=why):
+            _route(q, k, v)
+
+
+def test_kernel_route_checks_shapes():
+    q, k, v = _views(torch.bfloat16, H=6, KV=4)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        _route(q, k, v)
+    q, k, v = _views(torch.bfloat16, hd=96)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        _route(q, k, v)
+
+
+def test_tma_checks_are_pure_functions_of_the_layout():
+    # size-1 dims are never stepped over: any stride there is fine
+    assert tfa.tma_strides((1, 1, 1, 64), (7, 3, 5, 1)) == (64, 64, 64)
+    assert tfa.tma_strides((2, 9, 4, 32), (1152, 128, 32, 1)) == \
+        (1152, 128, 32)
+    assert tfa.tma_problem((1, 1, 1, 64), (7, 3, 5, 1), 0x1000) is None
+    assert tfa.tma_problem((2, 9, 4, 32), (1152, 128, 32, 1), 0x1000) is None
+    assert "dim S" in tfa.tma_problem((2, 9, 4, 32), (1184, 132, 32, 1), 0)
+    assert "aligned" in tfa.tma_problem((2, 9, 4, 32), (1152, 128, 32, 1), 8)
+    assert "2**40" in tfa.tma_problem((2, 9, 4, 32), (2**40, 128, 32, 1), 0)
+
+
+# --- build: a library's name follows every file it is compiled from -----
+
+def test_library_name_hashes_included_headers(tmp_path):
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    assert [p.name for p in build.inputs(tmp_path / "a.cu")] == \
+        ["a.cu", "g.cuh", "h.cuh"]
+    before = build.library_path(tmp_path / "a.cu")
+    (tmp_path / "g.cuh").write_text("// two\n")
+    assert build.library_path(tmp_path / "a.cu") != before
+
+
+def test_every_source_builds_from_the_package():
+    names = {p.name for n in build.SOURCES
+             for p in build.inputs(build.CSRC / f"{n}.cu")}
+    assert names == {"flash_attention.cu", "flash_attention_sm90.cu",
+                     "sm90_ptx.cuh"}
+
+
 def test_ref_names_the_plain_versions():
     assert tref.rmsnorm_ref is trn.rmsnorm_plain
     assert tref.flash_attention_ref is tfa.flash_attention_plain
@@ -105,7 +237,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.rmsnorm(x, torch.zeros(64))
     q = torch.randn(1, 16, 2, 32)
     ops.flash_attention(q, q, q)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
+                                   "flash_attention_bf16": 0,
+                                   "flash_attention_fp32": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
