@@ -12,9 +12,10 @@ kernel against its plain PyTorch version on the card, at the JAX kernel
 tests' shapes, at yi-9b's own and at gemma3-12b's global layers' (16 heads
 over 8, hd 256), in float32 and bfloat16 (attention: two routes, bf16 on
 the tensor cores and float32 scalar), and times the kernel, the plain
-version and one PyTorch library call beside the card's bound (for
-attention also the host's time to enqueue one call, 48 calls in a row as a
-forward makes them); it also
+version and one PyTorch library call beside the card's bound, and the
+host's time to enqueue one call (97 RMSNorm calls in a row, 48 attention
+calls, as a forward makes them); an empty kernel of the port's library,
+timed the same way, gives the launch floor under the short calls; it also
 holds the whole model on the card against the same model on the CPU at a
 reduced size. Phase 2 serves yi-9b at full width and depth in bfloat16
 with random weights from a seed: parallel prefill of 4 x 256 and 1 x 4096
@@ -55,6 +56,7 @@ PEAKS = {
 
 B_PROMPT, S_PROMPT, S_LONG, N_DECODE = 4, 256, 4096, 32
 N_LAYERS = 48                          # yi-9b
+N_NORMS = 2 * N_LAYERS + 1             # RMSNorm calls a forward or step makes
 BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
 # two paths round at different places (the flash kernel's tiled online
@@ -154,12 +156,15 @@ def phase0():
     libs = build.build()
     nvcc_s = time.perf_counter() - t
     for name, path in libs.items():
-        smem_bytes = getattr(ctypes.CDLL(str(path)), f"repro_{name}_smem_bytes")
-        smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
-        smem = {hd: smem_bytes(hd) for hd in (32, 64, 128, 256)}
-        print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}\n"
-              f"[smem] {name}: dynamic shared memory a block, by head dim: "
-              f"{smem}")
+        print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}")
+        if name.startswith("flash_attention"):
+            smem_bytes = getattr(ctypes.CDLL(str(path)),
+                                 f"repro_{name}_smem_bytes")
+            smem_bytes.argtypes = [ctypes.c_int]
+            smem_bytes.restype = ctypes.c_int
+            smem = {hd: smem_bytes(hd) for hd in (32, 64, 128, 256)}
+            print(f"[smem] {name}: dynamic shared memory a block, by head "
+                  f"dim: {smem}")
     sass = subprocess.run([cuobjdump(), "-sass", str(libs[BF16_LIB])],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -193,7 +198,8 @@ def phase1(peaks):
     # tolerances: the JAX test's (fp32 rounding / one bf16 output ulp)
     for shape, timed in [((4, 128), False), ((2, 16, 256), False),
                          ((1, 7, 384), False), ((3, 5, 8, 128), False),
-                         ((1024, 4096), True), ((4, 4096), True)]:
+                         ((1024, 4096), True), ((4, 4096), True),
+                         ((4096, 4096), True)]:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device="cuda").to(dt)
             s = (torch.randn(shape[-1:], generator=g, device="cuda")
@@ -210,11 +216,23 @@ def phase1(peaks):
                                           flush)
                 rec["library_ms"] = time_ms(
                     lambda: F.rms_norm(x, (shape[-1],), w, 1e-6), 50, flush)
+                # host cost of one call, as a forward or decode step's 97
+                # norms pay it
+                rec["host_us"] = host_us(lambda: rn.rmsnorm(x, s), N_NORMS)
+                rec["library_host_us"] = host_us(
+                    lambda: F.rms_norm(x, (shape[-1],), w, 1e-6), N_NORMS)
                 rec["bound_ms"], rec["bound_by"] = bound(
                     2 * n * x.element_size() + s.numel() * s.element_size(),
                     4 * n, torch.float32)
             records.append(rec)
             print(f"[K1 rmsnorm] {json.dumps(rec)}")
+    # the launch floor: the library's empty kernel on the 4-row call's grid
+    # (4 blocks of 256 threads), timed as the kernels are
+    rec = dict(kernel="launch_floor", grid=[4, 256],
+               ms=time_ms(lambda: rn.empty_launch(4, 256), 50, flush),
+               host_us=host_us(lambda: rn.empty_launch(4, 256), N_NORMS))
+    records.append(rec)
+    print(f"[K1 floor] {json.dumps(rec)}")
 
     # K2 flash attention, both routes (bf16: tensor cores; float32:
     # scalar): the JAX test shapes (KV = H), then yi-9b's (H=32 over KV=4),

@@ -17,11 +17,13 @@ normalise, scale) become one read and one write.
 on machines without it. (No ``from __future__ import annotations`` here:
 Triton reads the ``tl.constexpr`` annotation of the kernel.)
 """
+import ctypes
 import functools
 import os
 
 import torch
 
+from . import build
 from .build import BUILD_DIR
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -89,3 +91,19 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 
 
 rmsnorm.launches = 0
+
+
+@functools.cache
+def _empty():
+    fn = build.load("rmsnorm").repro_rmsnorm_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def empty_launch(blocks: int, threads: int, device=None):
+    """Launch the library's empty kernel of ``blocks`` x ``threads`` on the
+    current stream: the floor under any launch of that grid."""
+    err = _empty()(blocks, threads, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")

@@ -221,7 +221,7 @@ def test_every_source_builds_from_the_package():
     names = {p.name for n in build.SOURCES
              for p in build.inputs(build.CSRC / f"{n}.cu")}
     assert names == {"flash_attention.cu", "flash_attention_sm90.cu",
-                     "sm90_ptx.cuh"}
+                     "rmsnorm.cu", "sm90_ptx.cuh"}
 
 
 def test_ref_names_the_plain_versions():
