@@ -57,6 +57,7 @@ PEAKS = {
 B_PROMPT, S_PROMPT, S_LONG, N_DECODE = 4, 256, 4096, 32
 N_LAYERS = 48                          # yi-9b
 N_NORMS = 2 * N_LAYERS + 1             # RMSNorm calls a forward or step makes
+D_MODEL = 4096                         # yi-9b
 BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
 # two paths round at different places (the flash kernel's tiled online
@@ -151,10 +152,12 @@ def phase0():
     print(f"nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, rmsnorm as rn
     t = time.perf_counter()
     libs = build.build()
     nvcc_s = time.perf_counter() - t
+    print(f"build: nvcc {nvcc_s:.1f} s ({len(libs)} sources at once)")
+    n_sm = rn.sm_count(0)
     for name, path in libs.items():
         print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}")
         if name.startswith("flash_attention"):
@@ -165,20 +168,19 @@ def phase0():
             smem = {hd: smem_bytes(hd) for hd in (32, 64, 128, 256)}
             print(f"[smem] {name}: dynamic shared memory a block, by head "
                   f"dim: {smem}")
+        elif name == "rmsnorm":
+            for D, dt in ((4096, torch.bfloat16), (8192, torch.float32)):
+                p = rn.plan(S_LONG, D, dt, n_sm)
+                print(f"[smem] rmsnorm: {p.name} plan at D={D} {dt}, "
+                      f"{n_sm} SMs: {p.stages} stages of {D * dt.itemsize} "
+                      f"bytes, {p.smem} bytes of dynamic shared memory a "
+                      f"block, grid {p.grid} x {p.threads} threads")
     sass = subprocess.run([cuobjdump(), "-sass", str(libs[BF16_LIB])],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     print(f"[sass] {libs[BF16_LIB].name}: {hgmma} HGMMA instructions")
     check(hgmma > 0, "the bf16 attention library has no wgmma (HGMMA)")
-    t = time.perf_counter()
-    for dt in (torch.float32, torch.bfloat16):   # Triton JIT per dtype
-        ops.rmsnorm(torch.ones(2, 4096, dtype=dt, device="cuda"),
-                    torch.zeros(4096, dtype=dt, device="cuda"))
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t
-    print(f"build: nvcc {nvcc_s:.1f} s (both sources at once), "
-          f"triton JIT {triton_s:.1f} s")
     return smi
 
 
@@ -194,20 +196,34 @@ def phase1(peaks):
         t_bytes, t_ops = nbytes / bw * 1e3, nops / rate[dt] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    # K1 RMSNorm: the JAX test shapes, then yi-9b's prefill and decode rows
-    # tolerances: the JAX test's (fp32 rounding / one bf16 output ulp)
+    # K1 RMSNorm: the JAX test shapes, then yi-9b's decode (4 rows),
+    # prefill (4 x 256) and long-prefill (1 x 4096) rows. Every shape runs
+    # in both plans, whichever plan() picks, and through rmsnorm(), which
+    # picks; the timed shapes are timed through rmsnorm(). Tolerances: the
+    # JAX test's (fp32 rounding / one bf16 output ulp).
+    n_sm = rn.sm_count(0)
     for shape, timed in [((4, 128), False), ((2, 16, 256), False),
                          ((1, 7, 384), False), ((3, 5, 8, 128), False),
-                         ((1024, 4096), True), ((4, 4096), True),
-                         ((4096, 4096), True)]:
+                         ((B_PROMPT, D_MODEL), True),
+                         ((B_PROMPT * S_PROMPT, D_MODEL), True),
+                         ((S_LONG, D_MODEL), True)]:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device="cuda").to(dt)
             s = (torch.randn(shape[-1:], generator=g, device="cuda")
                  * 0.1).to(dt)
             tol = 1e-5 if dt == torch.float32 else 3e-2
-            err = max_err(rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s), tol)
+            want = rn.rmsnorm_plain(x, s)
+            x2 = x.reshape(-1, shape[-1])
+            rows, D = x2.shape
+            plan_errs = {p.name: max_err(rn.launch(x2, s, 1e-6, p)
+                                         .reshape(shape), want, tol)
+                         for p in (rn.rows_plan(rows, D, x.element_size()),
+                                   rn.ring_plan(rows, D, x.element_size(),
+                                                n_sm))}
             rec = dict(kernel="rmsnorm", shape=list(shape), dtype=str(dt),
-                       max_abs_err=err, tol=tol)
+                       plan=rn.plan(rows, D, dt, n_sm).name,
+                       max_abs_err=max_err(rn.rmsnorm(x, s), want, tol),
+                       plan_max_abs_err=plan_errs, tol=tol)
             if timed:
                 n = x.numel()
                 w = (1.0 + s.float()).to(dt)
@@ -224,15 +240,38 @@ def phase1(peaks):
                 rec["bound_ms"], rec["bound_by"] = bound(
                     2 * n * x.element_size() + s.numel() * s.element_size(),
                     4 * n, torch.float32)
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
             records.append(rec)
             print(f"[K1 rmsnorm] {json.dumps(rec)}")
-    # the launch floor: the library's empty kernel on the 4-row call's grid
-    # (4 blocks of 256 threads), timed as the kernels are
-    rec = dict(kernel="launch_floor", grid=[4, 256],
-               ms=time_ms(lambda: rn.empty_launch(4, 256), 50, flush),
-               host_us=host_us(lambda: rn.empty_launch(4, 256), N_NORMS))
-    records.append(rec)
-    print(f"[K1 floor] {json.dumps(rec)}")
+            del x, want
+    # the launch floor: the library's empty kernel on the decode call's
+    # grid, timed as the kernels are
+    p = rn.plan(B_PROMPT, D_MODEL, torch.bfloat16, n_sm)
+    x = torch.empty((B_PROMPT, D_MODEL), dtype=torch.bfloat16, device="cuda")
+    floor = dict(kernel="launch_floor", grid=[p.grid, p.threads],
+                 ms=time_ms(lambda: rn.empty_launch(p.grid, p.threads), 50,
+                            flush),
+                 host_us=host_us(lambda: rn.empty_launch(p.grid, p.threads),
+                                 N_NORMS),
+                 # the host's share of a call that allocates its output
+                 alloc_host_us=host_us(lambda: torch.empty(
+                     x.shape, dtype=x.dtype, device=x.device), N_NORMS))
+    records.append(floor)
+    print(f"[K1 floor] {json.dumps(floor)}")
+    # where the plans cross: both plans over row counts at yi-9b's width
+    for dt in (torch.bfloat16, torch.float32):
+        for rows in (1, 4, 16, 64, 132, 264, 528, 792, 1024, 1056, 1057,
+                     2048, 4096):
+            x = torch.randn((rows, D_MODEL), generator=g,
+                            device="cuda").to(dt)
+            s = torch.zeros(D_MODEL, dtype=dt, device="cuda")
+            rec = dict(rows=rows, D=D_MODEL, dtype=str(dt),
+                       picked=rn.plan(rows, D_MODEL, dt, n_sm).name)
+            for p in (rn.rows_plan(rows, D_MODEL, x.element_size()),
+                      rn.ring_plan(rows, D_MODEL, x.element_size(), n_sm)):
+                rec[f"{p.name}_ms"] = time_ms(
+                    lambda: rn.launch(x, s, 1e-6, p), 50, flush)
+            print(f"[K1 plans] {json.dumps(rec)}")
 
     # K2 flash attention, both routes (bf16: tensor cores; float32:
     # scalar): the JAX test shapes (KV = H), then yi-9b's (H=32 over KV=4),
@@ -329,7 +368,7 @@ def model_check_small():
 
 
 def phase2():
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, rmsnorm as rn
     from repro_torch.models import registry
     from repro_torch.train import serve
     cfg = registry.load_config("yi-9b")
@@ -367,6 +406,7 @@ def phase2():
     (cache, toks), t_dec = timed(lambda: serve.decode_tokens(
         model, cache, last, S_PROMPT, N_DECODE))
     counts = ops.launch_counts()
+    row_launches = dict(rn.rmsnorm.row_launches)
     # --------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -394,17 +434,34 @@ def phase2():
         sequential_prefill_tok_s=B_PROMPT * S_PROMPT / t_seq,
         decode_tok_s=B_PROMPT * N_DECODE / t_dec,
         decode_step_ms=t_dec / N_DECODE * 1e3, peak_mem_gb=peak_gb,
-        launches=counts, launches_per_prefill=per_prefill,
+        launches=counts, rmsnorm_launches_by_rows=row_launches,
+        launches_per_prefill=per_prefill,
         rel_rms_seq_vs_par=rel_rms, top1_seq_vs_par=top1)
     print(f"[serve] {json.dumps(out)}")
-    check(counts["rmsnorm"] > 0, "rmsnorm was not launched on the main path")
+    # RMSNorm: 97 calls a forward or step; 4-row calls in 256 sequential
+    # prefill and 32 decode steps, 1024 rows in 2 prefills, 4096 in 1
+    want_rows = {B_PROMPT: N_NORMS * (S_PROMPT + N_DECODE),
+                 B_PROMPT * S_PROMPT: 2 * N_NORMS, S_LONG: N_NORMS}
+    check(counts["rmsnorm"] == sum(want_rows.values()),
+          f"rmsnorm launched {counts['rmsnorm']} times, not "
+          f"{sum(want_rows.values())}")
+    check(row_launches == want_rows,
+          f"rmsnorm launches by row count {row_launches} != {want_rows}")
+    n_sm = rn.sm_count(0)
+    for name in ("rows", "ring"):
+        want = sum(n for rows, n in want_rows.items()
+                   if rn.plan(rows, D_MODEL, cfg.torch_dtype, n_sm).name
+                   == name)
+        check(counts[f"rmsnorm_{name}"] == want,
+              f"the rmsnorm {name} plan launched "
+              f"{counts[f'rmsnorm_{name}']} times, not {want}")
     check(counts["flash_attention_bf16"] == 3 * N_LAYERS,
           f"the bf16 attention route launched "
           f"{counts['flash_attention_bf16']} times, not 3 prefills x "
           f"{N_LAYERS} layers")
     check(counts["flash_attention_fp32"] == 0,
           "the float32 attention route ran on the bf16 main path")
-    return counts, model, prompts, long_prompt
+    return counts, row_launches, model, prompts, long_prompt
 
 
 def phase3(model, prompts, long_prompt):
@@ -444,6 +501,11 @@ def phase3(model, prompts, long_prompt):
         for e in top:
             print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<5d} {e.key[:90]}")
+        k1 = [e for e in kernels if "rmsnorm" in e.key]
+        k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
+        print(f"[profile]   K1 rmsnorm: {k1_ms:.3f} ms over "
+              f"{sum(e.count for e in k1)} launches, {k1_ms / dev_ms:.2%} "
+              f"of device busy")
 
 
 def main():
@@ -458,41 +520,43 @@ def main():
           f"{peaks[1] / 1e12} TFLOP/s bf16, {peaks[2] / 1e12} TFLOP/s fp32")
     records = phase1(peaks)
     model_check_small()
-    counts, model, prompts, long_prompt = phase2()
+    counts, row_launches, model, prompts, long_prompt = phase2()
     phase3(model, prompts, long_prompt)
 
-    # each kernel's record at the main path's shape (the float32 route at
+    # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)
-    attn = dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128], causal=True)
-    main_path = {
-        "rmsnorm": dict(shape=[B_PROMPT * S_PROMPT, 4096], dtype="torch.bfloat16"),
-        "flash_attention_bf16": dict(attn, dtype="torch.bfloat16"),
-        "flash_attention_fp32": dict(attn, dtype="torch.float32"),
-    }
-    fa_src = "src/repro/kernels/flash_attention.py:26"
-    meta = {
-        "rmsnorm": dict(route="triton",
-                        source="src/repro_torch/kernels/rmsnorm.py",
-                        replaces="src/repro/kernels/rmsnorm.py:21"),
-        "flash_attention_bf16": dict(
-            route="cuda", source=f"src/repro_torch/csrc/{BF16_LIB}.cu",
-            replaces=fa_src),
-        "flash_attention_fp32": dict(
-            route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-            replaces=fa_src),
-    }
+    floor = next(r for r in records if r["kernel"] == "launch_floor")
     kernels = []
-    for name, sel in main_path.items():
-        rec = next(r for r in records if r["kernel"] == name
-                   and all(r.get(k) == v for k, v in sel.items()))
+    for rows in (B_PROMPT, B_PROMPT * S_PROMPT, S_LONG):
+        rec = next(r for r in records if r["kernel"] == "rmsnorm"
+                   and r["shape"] == [rows, D_MODEL]
+                   and r["dtype"] == "torch.bfloat16")
         kernels.append(dict(
-            name=name, **meta[name], launches=counts[name],
-            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            **{k: rec[k] for k in ("tflops", "bound_share", "host_us",
-                                    "library_host_us") if k in rec},
-            shape=rec["shape"], card=smi))
+            name=f"rmsnorm@{rows}x{D_MODEL}", route="cuda",
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:21",
+            launches=row_launches[rows], plan=rec["plan"],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "bound_share", "host_us",
+                                    "library_host_us", "shape")},
+            floor_ms=floor["ms"], card=smi))
+    attn = dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128], causal=True)
+    fa_src = "src/repro/kernels/flash_attention.py:26"
+    for name, dt, src in (
+            ("flash_attention_bf16", "torch.bfloat16", f"{BF16_LIB}.cu"),
+            ("flash_attention_fp32", "torch.float32", "flash_attention.cu")):
+        rec = next(r for r in records if r["kernel"] == name
+                   and r["dtype"] == dt
+                   and all(r.get(k) == v for k, v in attn.items()))
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=fa_src, launches=counts[name],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "tflops", "bound_share", "host_us",
+                                    "library_host_us", "shape")},
+            card=smi))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -74,6 +74,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copies `bytes` of contiguous global memory at `src` into shared memory at
+// `dst` (1-D bulk copy, no tensor map); completion is counted on `bar` in
+// bytes. Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses, and those that a
+// barrier made visible to it, before its later async-proxy (TMA) ones.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- register budget per warpgroup ----------------------------------------
 
 template <int R>

@@ -2,9 +2,10 @@
 
 A CPU tensor goes to the kernel's plain version. A CUDA tensor goes to the
 kernel, which launches or raises: there is no fallback. Any other device
-raises. Each kernel wrapper counts its launches (``launch_counts``); the
-attention kernel has one count per route (bf16 on tensor cores, fp32
-scalar) and ``flash_attention`` is their sum."""
+raises. Each kernel wrapper counts its launches (``launch_counts``): RMSNorm
+in all and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``); attention
+per route (bf16 on tensor cores, fp32 scalar), with ``flash_attention``
+their sum."""
 from __future__ import annotations
 
 from . import flash_attention as _fa
@@ -37,6 +38,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in _KERNELS.items()}
+    counts.update({f"rmsnorm_{name}": n
+                   for name, n in _rn.rmsnorm.plan_launches.items()})
     counts["flash_attention"] = sum(fn.launches for fn in _fa.KERNELS.values())
     return counts
 
@@ -44,3 +47,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _KERNELS.values():
         fn.launches = 0
+    _rn.rmsnorm.plan_launches = dict.fromkeys(_rn.rmsnorm.plan_launches, 0)
+    _rn.rmsnorm.row_launches.clear()

@@ -1,32 +1,39 @@
-"""Fused RMSNorm for Hopper, in Triton, beside its plain PyTorch version.
+"""Fused RMSNorm for Hopper (CUDA C++), beside its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm.py``
 (``_rmsnorm_kernel`` / ``rmsnorm``): Gemma-style
 ``y = x * rsqrt(mean(x^2, -1) + eps) * (1 + scale)``, computed in fp32 and
 cast back to ``x.dtype``.
 
-What bounds it on an H100: it does a few operations per element and moves
-``2 * rows * D`` elements (one read of x, one write of y), so it is bound by
-device-memory bytes (3.35 TB/s on the SXM part). The design reads each row
-once: one Triton program holds one whole row (D padded to a power of two
-and masked) in registers, reduces the sum of squares in fp32, and writes
-the scaled row, so the three passes of the plain version (square-mean,
-normalise, scale) become one read and one write.
-
-``triton`` is imported inside the launching function: the module imports
-on machines without it. (No ``from __future__ import annotations`` here:
-Triton reads the ``tl.constexpr`` annotation of the kernel.)
+The kernel is ``repro_torch/csrc/rmsnorm.cu`` (built by ``kernels/build.py``
+and bound here with ctypes); its header says what bounds it and how each of
+its two launch plans answers that. ``plan`` picks the plan from the row
+count: ``rows`` (one block per row) for the few rows of a decode step,
+``ring`` (a persistent grid fed by TMA bulk copies) for prefill. Both read
+rows in 16-byte chunks, so x's base, its row stride and a row's bytes must
+be multiples of 16 (``check_bulk_copy``); other input raises ``ValueError``.
 """
+from __future__ import annotations
+
+import collections
 import ctypes
 import functools
-import os
 
 import torch
 
 from . import build
-from .build import BUILD_DIR
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+ALIGN = 16                   # bytes: a chunk, and the bulk copy's granule
+MAX_THREADS = 1024           # a block's
+SM_THREADS = 2048            # an SM's (the rows kernel fits 32 registers)
+SM_BLOCKS = 32               # resident blocks an SM holds at most
+VEC = 2                      # chunks of a row per thread, at most
+SMEM_LIMIT = 232_448         # bytes of shared memory a block may use (227 KB)
+RED_BYTES = 2 * 32 * 4       # the ring's two buffers of per-warp sums
+RING_BYTES_PER_SM = 128 * 1024  # rows in flight on an SM, in all its blocks
+
+Plan = collections.namedtuple("Plan", "name grid threads stages smem")
 
 
 def rmsnorm_plain(x, scale, eps: float = 1e-6):
@@ -37,32 +44,133 @@ def rmsnorm_plain(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def _threads(D: int, element_size: int) -> int:
+    """Threads a block for rows of D elements: a warp for each 64 chunks
+    (two per thread), at most 1024; raises if a row needs more."""
+    chunks = D * element_size // ALIGN
+    threads = min(MAX_THREADS, 32 * -(-chunks // (32 * VEC)))
+    if chunks > VEC * threads:
+        raise ValueError(f"rmsnorm kernel takes rows of at most "
+                         f"{VEC * MAX_THREADS * ALIGN} bytes, got {D} "
+                         f"elements of {element_size} bytes")
+    return threads
+
+
+def blocks_per_sm(threads: int) -> int:
+    return min(SM_BLOCKS, SM_THREADS // threads)
+
+
+def rows_plan(rows: int, D: int, element_size: int) -> Plan:
+    """One block per row, no shared-memory ring."""
+    return Plan("rows", rows, _threads(D, element_size), 0, 0)
+
+
+def ring_plan(rows: int, D: int, element_size: int, n_sm: int) -> Plan:
+    """A persistent grid of at most ``n_sm`` x k blocks, each walking rows
+    through a ring of 2-4 stages of one row each. k is half the blocks an
+    SM holds (the ring kernel takes up to 64 registers a thread, so 1024
+    threads an SM); the stages share ``RING_BYTES_PER_SM`` among an SM's k
+    blocks. The grid never exceeds the rows, so every block has at least
+    one."""
+    threads = _threads(D, element_size)
+    row_bytes = D * element_size
+    k = max(1, blocks_per_sm(threads) // 2)
+    stages = max(2, min(4, RING_BYTES_PER_SM // (k * row_bytes)))
+    smem = stages * row_bytes + RED_BYTES + 8 * stages
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"rmsnorm ring of {stages} rows of {row_bytes} "
+                         f"bytes needs {smem} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
+    return Plan("ring", min(rows, n_sm * k), threads, stages, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, D: int, dtype: torch.dtype, n_sm: int) -> Plan:
+    """The launch plan for ``rows`` rows of D elements of ``dtype`` on a
+    card of ``n_sm`` SMs: ``rows`` while one block per row fits the card in
+    one wave, ``ring`` above. A pure function."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"rmsnorm kernel supports {SUPPORTED_DTYPES}, "
+                        f"got {dtype}")
+    if rows < 1 or D < 1 or n_sm < 1:
+        raise ValueError(f"no plan for rows={rows}, D={D}, n_sm={n_sm}")
+    element_size = dtype.itemsize
+    if rows <= n_sm * blocks_per_sm(_threads(D, element_size)):
+        return rows_plan(rows, D, element_size)
+    return ring_plan(rows, D, element_size, n_sm)
+
+
+def check_bulk_copy(rows: int, D: int, element_size: int, row_stride: int,
+                    data_ptr: int) -> None:
+    """Raise ``ValueError`` naming the rule that ``rows`` rows of D elements
+    at ``data_ptr``, ``row_stride`` elements apart, break: the kernel copies
+    a row as one bulk copy and reads it in 16-byte chunks. A single row has
+    no stride to check. A pure function."""
+    if data_ptr % ALIGN:
+        raise ValueError(f"rmsnorm kernel needs a {ALIGN}-byte aligned base, "
+                         f"got {data_ptr:#x}")
+    if D * element_size % ALIGN:
+        raise ValueError(f"rmsnorm kernel needs rows of a multiple of "
+                         f"{ALIGN} bytes, got D={D} x {element_size} bytes")
+    if rows > 1 and row_stride * element_size % ALIGN:
+        raise ValueError(f"rmsnorm kernel needs a row stride of a multiple "
+                         f"of {ALIGN} bytes, got {row_stride} elements x "
+                         f"{element_size} bytes")
+
+
+def as_rows(x):
+    """x (..., D) as the (rows, D) tensor the kernel reads: a view where
+    ``reshape`` gives one, with any row stride; a copy only if the last dim
+    is not contiguous."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return x2 if x2.stride(-1) == 1 else x2.contiguous()
+
+
 @functools.cache
-def _kernel():
-    # Triton keeps its cache under TRITON_HOME; keep it inside the checkout.
-    os.environ.setdefault("TRITON_HOME", str(BUILD_DIR / "triton"))
-    # Triton resolves names through the kernel's globals, so ``tl`` is bound
-    # as a module global here rather than as a local of this function.
-    global tl
-    import triton
-    import triton.language as tl
+def _lib():
+    lib = build.load("rmsnorm")
+    lib.repro_rmsnorm_fwd.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 2
+        + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.repro_rmsnorm_fwd.restype = ctypes.c_int
+    lib.repro_rmsnorm_empty.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.repro_rmsnorm_empty.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
-    @triton.jit
-    def rmsnorm_kernel(x_ptr, s_ptr, o_ptr, D, stride_x, stride_o, eps,
-                       BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        mask = cols < D
-        x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=0) / D
-        y = x * tl.rsqrt(var + eps)
-        s = tl.load(s_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = y * (1.0 + s)
-        tl.store(o_ptr + row * stride_o + cols,
-                 y.to(o_ptr.dtype.element_ty), mask=mask)
 
-    return rmsnorm_kernel
+@functools.cache
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({_lib().repro_cuda_error_string(err).decode()})")
+
+
+def launch(x, scale, eps: float, p: Plan, row_stride: int | None = None):
+    """Launch plan ``p`` on checked CUDA input: x (..., D), contiguous, or
+    (rows, D) rows ``row_stride`` elements apart; returns y, contiguous, of
+    x's shape. Counts the launch, in all, for the plan and by row count."""
+    D = x.shape[-1]
+    rows = x.numel() // D
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _raise_on(_lib().repro_rmsnorm_fwd(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
+        D if row_stride is None else row_stride, D, eps,
+        int(x.dtype == torch.bfloat16), int(p.name == "ring"), p.grid,
+        p.threads, p.stages, p.smem,
+        # the current stream's handle, without building a Stream object
+        torch._C._cuda_getCurrentRawStream(x.device.index)),
+        "rmsnorm launch")
+    rmsnorm.launches += 1
+    rmsnorm.plan_launches[p.name] += 1
+    rmsnorm.row_launches[rows] += 1
+    return out
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -70,40 +178,35 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
                          f"got {x.device} and {scale.device}")
-    if x.dtype not in SUPPORTED_DTYPES:
-        raise TypeError(f"rmsnorm kernel supports {SUPPORTED_DTYPES}, got {x.dtype}")
+    if x.dtype not in SUPPORTED_DTYPES or scale.dtype != x.dtype:
+        raise TypeError(f"rmsnorm kernel supports x and scale of one dtype "
+                        f"of {SUPPORTED_DTYPES}, got {x.dtype} and "
+                        f"{scale.dtype}")
     D = x.shape[-1]
     if scale.shape != (D,):
         raise ValueError(f"scale shape {tuple(scale.shape)} != ({D},)")
-    x2 = x.reshape(-1, D)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    # a contiguous x is read as it is; anything else as its (rows, D) view
+    x2 = x if x.is_contiguous() else as_rows(x)
+    rows = x2.numel() // D
+    row_stride = D if x2 is x else x2.stride(0)
     scale = scale.contiguous()
-    rows = x2.shape[0]
-    out = torch.empty((rows, D), dtype=x.dtype, device=x.device)
-    if rows:
-        block = 1 << (D - 1).bit_length()      # D padded to a power of two
-        _kernel()[(rows,)](x2, scale, out, D, x2.stride(0), out.stride(0),
-                           eps, BLOCK_D=block,
-                           num_warps=8 if block >= 4096 else 4)
-        rmsnorm.launches += 1
-    return out.reshape(x.shape)
+    check_bulk_copy(rows, D, x.element_size(), row_stride, x2.data_ptr())
+    check_bulk_copy(1, D, x.element_size(), D, scale.data_ptr())
+    p = plan(rows, D, x.dtype, sm_count(x.device.index))
+    out = launch(x2, scale, eps, p, row_stride)
+    return out if x2 is x else out.view(x.shape)
 
 
 rmsnorm.launches = 0
+rmsnorm.plan_launches = {"rows": 0, "ring": 0}
+rmsnorm.row_launches = collections.Counter()  # launches by row count
 
 
-@functools.cache
-def _empty():
-    fn = build.load("rmsnorm").repro_rmsnorm_empty
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def empty_launch(blocks: int, threads: int, device=None):
+def empty_launch(blocks: int, threads: int, device_index: int = 0):
     """Launch the library's empty kernel of ``blocks`` x ``threads`` on the
     current stream: the floor under any launch of that grid."""
-    err = _empty()(blocks, threads, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+    _raise_on(_lib().repro_rmsnorm_empty(
+        blocks, threads, torch._C._cuda_getCurrentRawStream(device_index)),
+        "empty kernel launch")

@@ -23,18 +23,94 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_kernel_matches_plain(cuda_device, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(300, 4096, generator=g, device=cuda_device).to(dtype)
-    s = (torch.randn(4096, generator=g, device=cuda_device) * 0.1).to(dtype)
-    n0 = trn.rmsnorm.launches
-    got = ops.rmsnorm(x, s)
-    assert trn.rmsnorm.launches == n0 + 1
-    tol = 1e-5 if dtype == torch.float32 else 3e-2
+def _norm_inputs(device, rows, D, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(rows, D, generator=g, device=device).to(dtype)
+    s = (torch.randn(D, generator=g, device=device) * 0.1).to(dtype)
+    return x, s
+
+
+def _assert_norm_close(got, x, s):
+    # the JAX test's tolerances: fp32 rounding, or one bf16 output ulp
+    tol = 1e-5 if x.dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), trn.rmsnorm_plain(x, s).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 384, 3840, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 131, 132, 133, 1024, 4097])
+def test_rmsnorm_kernel_matches_plain(cuda_device, rows, D, dtype):
+    """Rows on both sides of the plans' threshold (132 SMs on an H100)."""
+    x, s = _norm_inputs(cuda_device, rows, D, dtype)
+    n0 = trn.rmsnorm.launches
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm.launches == n0 + 1
+    _assert_norm_close(got, x, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 133, 1024, 4097])
+def test_rmsnorm_both_plans_match_plain(cuda_device, rows, dtype):
+    """Each plan at any row count, whichever plan() would pick."""
+    x, s = _norm_inputs(cuda_device, rows, 4096, dtype, seed=1)
+    n_sm = trn.sm_count(x.device.index)
+    for p in (trn.rows_plan(rows, 4096, x.element_size()),
+              trn.ring_plan(rows, 4096, x.element_size(), n_sm)):
+        got = trn.launch(x, s, 1e-6, p)
+        torch.cuda.synchronize()
+        _assert_norm_close(got, x, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [4, 1024])
+def test_rmsnorm_reads_a_row_strided_view_without_a_copy(cuda_device, rows,
+                                                         dtype):
+    big, s = _norm_inputs(cuda_device, rows, 4096 + 64, dtype, seed=2)
+    x, s = big[:, :4096], s[:4096]
+    assert trn.as_rows(x).data_ptr() == big.data_ptr()
+    assert trn.as_rows(x).stride(0) == 4096 + 64
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    _assert_norm_close(got, x.contiguous(), s)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_refuses_misaligned_views(cuda_device):
+    """Nothing falls back to the plain version: the kernel raises."""
+    big, s = _norm_inputs(cuda_device, 8, 4096 + 8, torch.bfloat16)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="aligned base"):
+        ops.rmsnorm(big[:, 1:4097], s[:4096])      # base 2 bytes off
+    with pytest.raises(ValueError, match="row stride"):
+        odd = torch.empty(8, 4100, dtype=torch.bfloat16, device=cuda_device)
+        ops.rmsnorm(odd[:, :4096], s[:4096])       # 8200-byte rows
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        ops.rmsnorm(big[:, :4092], s[:4092])       # 8184-byte rows
+    assert ops.launch_counts() == counts
+
+
+@pytest.mark.cuda
+def test_rmsnorm_launch_counters_per_plan(cuda_device):
+    ops.reset_launch_counts()
+    n_sm = trn.sm_count(torch.cuda.current_device())
+    calls = {4: 3, 132: 1, 133: 2, 1024: 1, 4096: 2}
+    want = {"rows": 0, "ring": 0}
+    for rows, n in calls.items():
+        x, s = _norm_inputs(cuda_device, rows, 4096, torch.bfloat16)
+        for _ in range(n):
+            ops.rmsnorm(x, s)
+        want[trn.plan(rows, 4096, torch.bfloat16, n_sm).name] += n
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert want["rows"] and want["ring"]
+    assert (counts["rmsnorm"], counts["rmsnorm_rows"],
+            counts["rmsnorm_ring"]) == (9, want["rows"], want["ring"])
+    assert dict(trn.rmsnorm.row_launches) == calls
 
 
 def _qkv(device, B, S, H, KV, hd, dtype, seed=1):

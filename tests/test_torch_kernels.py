@@ -43,7 +43,8 @@ def _f32(x):
 # --- K1: RMSNorm --------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(4, 128), (2, 16, 256), (1, 7, 384),
-                                   (3, 5, 8, 128)])
+                                   (3, 5, 8, 128), (4, 768), (3, 3840),
+                                   (4, 4096), (2, 8192)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_rmsnorm_plain_matches_jax(shape, dtype):
     rng = np.random.default_rng(0)
@@ -57,6 +58,80 @@ def test_rmsnorm_plain_matches_jax(shape, dtype):
     for want in (pallas_rmsnorm(xj, sj, interpret=True),
                  jref.rmsnorm_ref(xj, sj)):
         np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+# every registered d_model (src/repro_torch/configs and the JAX zoo)
+D_MODELS = (768, 1024, 1536, 2048, 2560, 3840, 4096, 5376, 7168, 8192)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", D_MODELS)
+def test_rmsnorm_plan_gives_every_block_rows_and_fits(D, dtype):
+    n_sm = 132
+    es = dtype.itemsize
+    chunks = D * es // 16
+    for rows in range(1, 8193):
+        p = trn.plan(rows, D, dtype, n_sm)
+        one_wave = n_sm * min(32, 2048 // p.threads)
+        assert p.name == ("rows" if rows <= one_wave else "ring")
+        assert 1 <= p.grid <= rows          # no block without a row
+        assert p.threads % 32 == 0 and p.threads <= 1024
+        assert chunks <= 2 * p.threads      # one or two 16-byte chunks each
+        if p.name == "rows":
+            assert (p.grid, p.stages, p.smem) == (rows, 0, 0)
+        else:
+            assert p.grid <= n_sm * 16
+            assert 2 <= p.stages <= 4
+            assert p.smem == p.stages * D * es + 256 + 8 * p.stages
+            assert p.smem <= 232_448        # the ring fits a block's share
+            # an SM's blocks fit its threads (64 registers each) and memory
+            per_sm = -(-p.grid // n_sm)
+            assert per_sm * p.threads <= 2048 or p.grid == rows
+            assert per_sm * (p.smem + 1024) <= 233_472 or p.grid == rows
+    # plan() is pure: the same arguments give the same plan
+    assert trn.plan(8192, D, dtype, n_sm) == trn.ring_plan(8192, D, es, n_sm)
+    assert trn.plan(4, D, dtype, n_sm) == trn.rows_plan(4, D, es)
+
+
+def test_rmsnorm_plan_refuses_what_no_plan_takes():
+    with pytest.raises(TypeError, match="float16"):
+        trn.plan(4, 4096, torch.float16, 132)
+    with pytest.raises(ValueError, match="at most 32768 bytes"):
+        trn.plan(4, 16384, torch.float32, 132)   # 64 KB rows
+    with pytest.raises(ValueError, match="rows=0"):
+        trn.plan(0, 4096, torch.float32, 132)
+
+
+@pytest.mark.parametrize("args, rule", [
+    ((4, 4096, 2, 4096, 0x1002), "aligned base"),
+    ((4, 4092, 2, 4096, 0x1000), "rows of a multiple of 16 bytes"),
+    ((4, 100, 2, 104, 0x1000), "rows of a multiple of 16 bytes"),
+    ((4, 4096, 2, 4100, 0x1000), "row stride"),
+    ((4, 4096, 4, 4098, 0x1000), "row stride"),
+])
+def test_rmsnorm_bulk_copy_check_names_the_rule(args, rule):
+    with pytest.raises(ValueError, match=rule):
+        trn.check_bulk_copy(*args)
+
+
+def test_rmsnorm_bulk_copy_check_accepts_aligned_rows():
+    for D in D_MODELS:
+        for es in (2, 4):
+            trn.check_bulk_copy(8, D, es, D, 0x1000)
+            trn.check_bulk_copy(8, D, es, D + 64, 0x1000)   # padded rows
+    # one row has no stride to step over
+    trn.check_bulk_copy(1, 4096, 2, 7, 0x1000)
+
+
+def test_rmsnorm_as_rows_keeps_row_strided_views():
+    big = torch.empty(6, 4160, dtype=torch.bfloat16)
+    x = big[:, :4096]
+    x2 = trn.as_rows(x)
+    assert x2.data_ptr() == big.data_ptr() and x2.stride() == (4160, 1)
+    x3 = trn.as_rows(torch.empty(2, 3, 4096))
+    assert x3.shape == (6, 4096) and x3.stride() == (4096, 1)
+    xt = trn.as_rows(torch.empty(4096, 6).t())      # column-major rows
+    assert xt.stride() == (4096, 1)
 
 
 # --- K2: flash attention ------------------------------------------------
@@ -237,7 +312,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.rmsnorm(x, torch.zeros(64))
     q = torch.randn(1, 16, 2, 32)
     ops.flash_attention(q, q, q)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_rows": 0,
+                                   "rmsnorm_ring": 0, "flash_attention": 0,
                                    "flash_attention_bf16": 0,
                                    "flash_attention_fp32": 0}
 
