@@ -5,26 +5,31 @@
 
 Phase 0 prints the card and its power limit, builds the CUDA kernels with
 nvcc (sm_90a, one process per source, in parallel), prints ptxas's
-registers, shared memory and spills for each kernel and the count of
-HGMMA (wgmma) instructions in the bf16 attention library's SASS, which
-must not be 0, and JIT-compiles the Triton kernel. Phase 1 holds each
-kernel against its plain PyTorch version on the card, at the JAX kernel
-tests' shapes, at yi-9b's own and at gemma3-12b's global layers' (16 heads
-over 8, hd 256), in float32 and bfloat16 (attention: two routes, bf16 on
-the tensor cores and float32 scalar), and times the kernel, the plain
-version and one PyTorch library call beside the card's bound, and the
-host's time to enqueue one call (97 RMSNorm calls in a row, 48 attention
-calls, as a forward makes them); an empty kernel of the port's library,
-timed the same way, gives the launch floor under the short calls; it also
+registers, shared memory and spills for each kernel, each attention
+library's dynamic shared memory by head dim and the RMSNorm ring's at
+D=4096 bf16 and D=8192 fp32, and the count of HGMMA (wgmma) instructions
+in the bf16 attention library's SASS, which must not be 0. Phase 1 holds
+each kernel against its plain PyTorch version on the card, at the JAX
+kernel tests' shapes, at yi-9b's own and at gemma3-12b's global layers'
+(16 heads over 8, hd 256), in float32 and bfloat16 (RMSNorm: both launch
+plans at every shape; attention: two routes, bf16 on the tensor cores and
+float32 scalar), and times the kernel, the plain version and one PyTorch
+library call beside the card's bound, and the host's time to enqueue one
+call (97 RMSNorm calls in a row, 48 attention calls, as a forward makes
+them); an empty kernel of the port's library, timed the same way, gives
+the launch floor under the short calls, and both RMSNorm plans are timed
+over row counts, where plan() switches from one to the other; it also
 holds the whole model on the card against the same model on the CPU at a
 reduced size. Phase 2 serves yi-9b at full width and depth in bfloat16
 with random weights from a seed: parallel prefill of 4 x 256 and 1 x 4096
 tokens, sequential prefill of the 4 prompts (whose logits must agree with
 the parallel prefill's), and 32 greedy decode steps; the kernels' launch
-counters must show that this path ran RMSNorm and the bf16 attention
-route (48 launches per prefill, 144 in all) and never the float32 route.
-Phase 3 profiles the two prefills and four decode steps (torch.profiler)
-and prints the device busy share and the kernels that take the most time.
+counters must show exactly the launches this path makes: RMSNorm 97 a
+forward or step (28,227 in all, by row count and by plan as plan() says),
+the bf16 attention route 48 per prefill (144 in all), the float32 route
+never. Phase 3 profiles the two prefills and four decode steps
+(torch.profiler) and prints the device busy share, the kernels that take
+the most time and RMSNorm's share.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record. Any failure raises and exits non-zero, and the
@@ -135,13 +140,9 @@ def row_rel_err(got, want):
 
 
 def cuobjdump():
-    """The toolkit's cuobjdump, or the copy that Triton's package carries."""
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
-        / "cuobjdump"
-    if cand.exists():
-        return str(cand)
-    import triton
-    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+    """The CUDA toolkit's cuobjdump (beside the nvcc that builds the
+    kernels)."""
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
                / "cuobjdump")
 
 

@@ -45,6 +45,17 @@
 
 #include "sm90_ptx.cuh"
 
+// What a launch takes besides the pointers and the stream; the Python
+// wrapper builds one per plan and shape and passes it by reference
+// (kernels/rmsnorm.py:LaunchArgs: the same fields in the same order).
+struct RmsnormArgs {
+  int rows, D;     // rows of D elements
+  int64_t sx, so;  // row strides of x and out, in elements
+  float eps;
+  int bf16, ring;  // the dtype, and the plan (1: ring, 0: rows)
+  int grid, threads, stages, smem;  // the plan's; smem in bytes
+};
+
 namespace {
 
 constexpr int kVec = 2;  // 16-byte chunks of a row per thread, at most
@@ -259,14 +270,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 __global__ void empty_kernel() {}
 
 template <typename T>
-cudaError_t launch(const void* x, const void* scale, void* out, int rows, int D, int64_t sx,
-                   int64_t so, float eps, int ring, int grid, int threads, int stages,
-                   int smem, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* scale, void* out, const RmsnormArgs& a,
+                   cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   T* ot = static_cast<T*>(out);
-  if (!ring) {
-    rmsnorm_rows<T><<<grid, threads, 0, stream>>>(xt, st, ot, D, sx, so, eps);
+  if (!a.ring) {
+    rmsnorm_rows<T><<<a.grid, a.threads, 0, stream>>>(xt, st, ot, a.D, a.sx, a.so, a.eps);
     return cudaGetLastError();
   }
   // The dynamic shared memory allowed so far, per device: the attribute is
@@ -277,39 +287,33 @@ cudaError_t launch(const void* x, const void* scale, void* out, int rows, int D,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   auto kern = rmsnorm_ring<T>;
-  if (smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a.smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
-    allowed[dev] = smem;
+    allowed[dev] = a.smem;
   }
-  kern<<<grid, threads, smem, stream>>>(xt, st, ot, rows, D, sx, so, eps, stages);
+  kern<<<a.grid, a.threads, a.smem, stream>>>(xt, st, ot, a.rows, a.D, a.sx, a.so, a.eps,
+                                              a.stages);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: `rows` rows of D elements, row stride `sx`; out: row stride `so`
-// (strides in elements); scale: D elements. `bf16` picks the dtype, `ring`
-// the plan; grid, threads, stages and smem (dynamic shared bytes) are the
-// plan's, from kernels/rmsnorm.py:plan(). Checks only what would make the
-// launch read or write out of bounds; the Python wrapper checks the rest.
-extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* out, int rows, int D,
-                                 int64_t sx, int64_t so, float eps, int bf16, int ring,
-                                 int grid, int threads, int stages, int smem, void* stream) {
-  const int esize = bf16 ? 2 : 4;
-  const int64_t row_bytes = static_cast<int64_t>(D) * esize;
-  if (rows <= 0 || D <= 0 || row_bytes % 16 || threads <= 0 || threads % 32 ||
-      threads > kMaxThreads || row_bytes / 16 > static_cast<int64_t>(kVec) * threads ||
-      grid <= 0 || grid > rows || (!ring && grid != rows) ||
-      (ring && (stages <= 0 ||
-                smem < stages * row_bytes + 2 * kMaxWarps * 4 + 8 * stages)))
+// Launches one plan on `stream`. Checks only what would make the launch
+// read or write out of bounds; the Python wrapper checks the rest.
+extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* out,
+                                 const RmsnormArgs* a, void* stream) {
+  const int64_t row_bytes = static_cast<int64_t>(a->D) * (a->bf16 ? 2 : 4);
+  if (a->rows <= 0 || a->D <= 0 || row_bytes % 16 || a->threads <= 0 || a->threads % 32 ||
+      a->threads > kMaxThreads || row_bytes / 16 > static_cast<int64_t>(kVec) * a->threads ||
+      a->grid <= 0 || a->grid > a->rows || (!a->ring && a->grid != a->rows) ||
+      (a->ring && (a->stages <= 0 || a->smem < a->stages * row_bytes + 2 * kMaxWarps * 4 +
+                                                   8 * a->stages)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return static_cast<int>(launch<__nv_bfloat16>(x, scale, out, rows, D, sx, so, eps, ring,
-                                                  grid, threads, stages, smem, st));
-  return static_cast<int>(
-      launch<float>(x, scale, out, rows, D, sx, so, eps, ring, grid, threads, stages, smem, st));
+  if (a->bf16)
+    return static_cast<int>(launch<__nv_bfloat16>(x, scale, out, *a, st));
+  return static_cast<int>(launch<float>(x, scale, out, *a, st));
 }
 
 extern "C" int repro_rmsnorm_empty(int blocks, int threads, void* stream) {

@@ -126,12 +126,32 @@ def as_rows(x):
     return x2 if x2.stride(-1) == 1 else x2.contiguous()
 
 
+class LaunchArgs(ctypes.Structure):
+    """``RmsnormArgs`` of ``csrc/rmsnorm.cu``: what a launch takes besides
+    the pointers and the stream, built once per plan and shape."""
+    _fields_ = [("rows", ctypes.c_int), ("D", ctypes.c_int),
+                ("sx", ctypes.c_int64), ("so", ctypes.c_int64),
+                ("eps", ctypes.c_float), ("bf16", ctypes.c_int),
+                ("ring", ctypes.c_int), ("grid", ctypes.c_int),
+                ("threads", ctypes.c_int), ("stages", ctypes.c_int),
+                ("smem", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(p: Plan, rows: int, D: int, row_stride: int, eps: float,
+                 bf16: bool):
+    """The launch's ``LaunchArgs``, by reference (one ctypes argument in
+    place of eleven)."""
+    return ctypes.byref(LaunchArgs(rows, D, row_stride, D, eps, bf16,
+                                   p.name == "ring", p.grid, p.threads,
+                                   p.stages, p.smem))
+
+
 @functools.cache
 def _lib():
     lib = build.load("rmsnorm")
-    lib.repro_rmsnorm_fwd.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 2
-        + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.repro_rmsnorm_fwd.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(LaunchArgs), ctypes.c_void_p]
     lib.repro_rmsnorm_fwd.restype = ctypes.c_int
     lib.repro_rmsnorm_empty.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
@@ -158,15 +178,16 @@ def launch(x, scale, eps: float, p: Plan, row_stride: int | None = None):
     x's shape. Counts the launch, in all, for the plan and by row count."""
     D = x.shape[-1]
     rows = x.numel() // D
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    # contiguous: x is contiguous or, as a (rows, D) view with a padded
+    # row stride, not dense
+    out = torch.empty_like(x)
+    dev = x.get_device()
     _raise_on(_lib().repro_rmsnorm_fwd(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
-        D if row_stride is None else row_stride, D, eps,
-        int(x.dtype == torch.bfloat16), int(p.name == "ring"), p.grid,
-        p.threads, p.stages, p.smem,
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        _launch_args(p, rows, D, D if row_stride is None else row_stride,
+                     eps, x.dtype == torch.bfloat16),
         # the current stream's handle, without building a Stream object
-        torch._C._cuda_getCurrentRawStream(x.device.index)),
-        "rmsnorm launch")
+        torch._C._cuda_getCurrentRawStream(dev)), "rmsnorm launch")
     rmsnorm.launches += 1
     rmsnorm.plan_launches[p.name] += 1
     rmsnorm.row_launches[rows] += 1
@@ -175,7 +196,7 @@ def launch(x, scale, eps: float, p: Plan, row_stride: int | None = None):
 
 def rmsnorm(x, scale, eps: float = 1e-6):
     """Launch the kernel. x: (..., D) on CUDA; scale: (D,) -> x's shape."""
-    if x.device.type != "cuda" or scale.device != x.device:
+    if not x.is_cuda or scale.get_device() != x.get_device():
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
                          f"got {x.device} and {scale.device}")
     if x.dtype not in SUPPORTED_DTYPES or scale.dtype != x.dtype:
@@ -194,7 +215,7 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     scale = scale.contiguous()
     check_bulk_copy(rows, D, x.element_size(), row_stride, x2.data_ptr())
     check_bulk_copy(1, D, x.element_size(), D, scale.data_ptr())
-    p = plan(rows, D, x.dtype, sm_count(x.device.index))
+    p = plan(rows, D, x.dtype, sm_count(x.get_device()))
     out = launch(x2, scale, eps, p, row_stride)
     return out if x2 is x else out.view(x.shape)
 
@@ -204,9 +225,11 @@ rmsnorm.plan_launches = {"rows": 0, "ring": 0}
 rmsnorm.row_launches = collections.Counter()  # launches by row count
 
 
-def empty_launch(blocks: int, threads: int, device_index: int = 0):
+def empty_launch(blocks: int, threads: int):
     """Launch the library's empty kernel of ``blocks`` x ``threads`` on the
-    current stream: the floor under any launch of that grid."""
+    current device's current stream: the floor under any launch of that
+    grid."""
     _raise_on(_lib().repro_rmsnorm_empty(
-        blocks, threads, torch._C._cuda_getCurrentRawStream(device_index)),
+        blocks, threads,
+        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())),
         "empty kernel launch")
