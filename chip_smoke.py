@@ -254,9 +254,8 @@ def phase1(peaks):
                             flush),
                  host_us=host_us(lambda: rn.empty_launch(p.grid, p.threads),
                                  N_NORMS),
-                 # the host's share of a call that allocates its output
-                 alloc_host_us=host_us(lambda: torch.empty(
-                     x.shape, dtype=x.dtype, device=x.device), N_NORMS))
+                 # the allocation of the output, as the wrapper makes it
+                 alloc_host_us=host_us(lambda: torch.empty_like(x), N_NORMS))
     records.append(floor)
     print(f"[K1 floor] {json.dumps(floor)}")
     # where the plans cross: both plans over row counts at yi-9b's width

@@ -10,12 +10,14 @@
 // it: the time is the launch, one DRAM round trip and one block reduction.
 // Two launch plans, chosen by kernels/rmsnorm.py:plan():
 //
-// - rows (few rows): one block per row; each thread holds at most two
-//   16-byte chunks of the row. Every load of the row and of the scale is
-//   issued before the first use (ld.global.nc, no L1 allocation), the sum of
-//   squares is reduced by warp shuffles and one cross-warp step through
-//   shared memory, and the row goes back as 16-byte stores. No ring and no
-//   barrier set-up, so the kernel is one DRAM round trip and one reduction.
+// - rows (while one block per row fits the card in one wave, as the decode
+//   call does): one block per row; each thread holds at most two 16-byte
+//   chunks of the row. Every load of the row (ld.global.nc, no L1
+//   allocation) and of the scale (through L1, which an SM's blocks share)
+//   is issued before the first use, the sum of squares is reduced by warp
+//   shuffles and one cross-warp step through shared memory, and the row
+//   goes back as 16-byte stores. No ring and no barrier set-up, so the
+//   kernel is one DRAM round trip and one reduction.
 // - ring (many rows): a persistent grid; block b walks rows b, b + grid, ...
 //   Rows arrive through a ring of 2-4 shared-memory stages. One thread fills
 //   each stage with one 1-D TMA bulk copy of the whole row, which completes
@@ -49,8 +51,8 @@
 // wrapper builds one per plan and shape and passes it by reference
 // (kernels/rmsnorm.py:LaunchArgs: the same fields in the same order).
 struct RmsnormArgs {
-  int rows, D;     // rows of D elements
-  int64_t sx, so;  // row strides of x and out, in elements
+  int rows, D;  // rows of D elements; out is contiguous
+  int64_t sx;   // x's row stride, in elements
   float eps;
   int bf16, ring;  // the dtype, and the plan (1: ring, 0: rows)
   int grid, threads, stages, smem;  // the plan's; smem in bytes
@@ -276,7 +278,7 @@ cudaError_t launch(const void* x, const void* scale, void* out, const RmsnormArg
   const T* st = static_cast<const T*>(scale);
   T* ot = static_cast<T*>(out);
   if (!a.ring) {
-    rmsnorm_rows<T><<<a.grid, a.threads, 0, stream>>>(xt, st, ot, a.D, a.sx, a.so, a.eps);
+    rmsnorm_rows<T><<<a.grid, a.threads, 0, stream>>>(xt, st, ot, a.D, a.sx, a.D, a.eps);
     return cudaGetLastError();
   }
   // The dynamic shared memory allowed so far, per device: the attribute is
@@ -292,7 +294,7 @@ cudaError_t launch(const void* x, const void* scale, void* out, const RmsnormArg
     if (err != cudaSuccess) return err;
     allowed[dev] = a.smem;
   }
-  kern<<<a.grid, a.threads, a.smem, stream>>>(xt, st, ot, a.rows, a.D, a.sx, a.so, a.eps,
+  kern<<<a.grid, a.threads, a.smem, stream>>>(xt, st, ot, a.rows, a.D, a.sx, a.D, a.eps,
                                               a.stages);
   return cudaGetLastError();
 }

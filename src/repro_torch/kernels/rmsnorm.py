@@ -130,8 +130,8 @@ class LaunchArgs(ctypes.Structure):
     """``RmsnormArgs`` of ``csrc/rmsnorm.cu``: what a launch takes besides
     the pointers and the stream, built once per plan and shape."""
     _fields_ = [("rows", ctypes.c_int), ("D", ctypes.c_int),
-                ("sx", ctypes.c_int64), ("so", ctypes.c_int64),
-                ("eps", ctypes.c_float), ("bf16", ctypes.c_int),
+                ("sx", ctypes.c_int64), ("eps", ctypes.c_float),
+                ("bf16", ctypes.c_int),
                 ("ring", ctypes.c_int), ("grid", ctypes.c_int),
                 ("threads", ctypes.c_int), ("stages", ctypes.c_int),
                 ("smem", ctypes.c_int)]
@@ -141,8 +141,8 @@ class LaunchArgs(ctypes.Structure):
 def _launch_args(p: Plan, rows: int, D: int, row_stride: int, eps: float,
                  bf16: bool):
     """The launch's ``LaunchArgs``, by reference (one ctypes argument in
-    place of eleven)."""
-    return ctypes.byref(LaunchArgs(rows, D, row_stride, D, eps, bf16,
+    place of ten)."""
+    return ctypes.byref(LaunchArgs(rows, D, row_stride, eps, bf16,
                                    p.name == "ring", p.grid, p.threads,
                                    p.stages, p.smem))
 
