@@ -29,7 +29,17 @@ forward or step (28,227 in all, by row count and by plan as plan() says),
 the bf16 attention route 48 per prefill (144 in all), the float32 route
 never. Phase 3 profiles the two prefills and four decode steps
 (torch.profiler) and prints the device busy share, the kernels that take
-the most time and RMSNorm's share.
+the most time and RMSNorm's share. Phase 4 drives the verifier's main path
+(repro_torch.api.verify on cuda): every registered case at every
+registered degree, clean and with each of its bugs, must give its
+registered verdict; at degree 2 each clean R_o must equal
+tests/golden/suite_degree2.json up to a renaming of t<N> names, and each
+clean certificate is replayed numerically on the card (inputs from a
+seeded generator, sharded per R_i, G_d evaluated with eval_term, the
+outputs rebuilt through R_o) against the sequential fragment run on the
+card, at rtol = atol = 2e-4 with TF32 off. It prints one JSON record per
+task beside the JAX package's counts from BENCH_verify.json, and checks
+that the path launched no kernel (it reaches neither).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record. Any failure raises and exits non-zero, and the
@@ -508,6 +518,73 @@ def phase3(model, prompts, long_prompt):
               f"of device busy")
 
 
+def phase4_verify():
+    """The verifier's main path on the card: the whole case matrix, the
+    degree-2 golden and the numeric replay of each clean certificate."""
+    from repro_torch import api
+    from repro_torch.api.replay import max_rel_excess, replay
+    from repro_torch.api.report import same_up_to_renaming
+    from repro_torch.kernels import ops
+    golden = json.loads((ROOT / "tests/golden/suite_degree2.json").read_text())
+    bench = json.loads((ROOT / "BENCH_verify.json").read_text())
+    # TF32 would put float32 products beyond the replay's 2e-4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tasks = [(case, deg, bug) for case in api.list_strategies()
+             for deg in api.get_strategy(case).degrees
+             for bug in (None,) + api.get_strategy(case).bug_names()]
+    ops.reset_launch_counts()
+    # --- the verify path: launches from here to the read are counted ---
+    t_suite, verify_s = time.perf_counter(), 0.0
+    for case, deg, bug in tasks:
+        r = api.verify(case, degree=deg, bug=bug, device="cuda")
+        verify_s += r.wall_s
+        check(r.ok, f"{r.task_id()}: verdict {r.verdict} against the "
+              f"expected {r.expected} ({r.error})")
+        stats = r.stats or {}
+        token = api.degree_token(deg)
+        jax = bench["fam_scaling"].get(f"{case}_deg{token}") \
+            or bench["fig5"].get(f"{case}_deg{token}") \
+            or (bench["fig4"].get(case) if token in ("2", "2x2") else None)
+        rec = dict(task=r.task_id(), verdict=r.verdict, expected=r.expected,
+                   wall_ms=r.wall_s * 1e3,
+                   infer_ms=stats["time_s"] * 1e3 if stats else None,
+                   egraph_nodes=stats.get("egraph_nodes"),
+                   lemma_fires=sum(stats["lemma_fires"].values())
+                   if stats else None,
+                   gs_ops=stats.get("gs_ops"), gd_ops=stats.get("gd_ops"))
+        if r.localization:
+            rec["localization"] = {k: r.localization[k] for k in
+                                   ("op_index", "op_name", "out_name")}
+        if jax and bug is None:
+            rec.update({f"jax_{k}": jax[k] for k in (
+                "egraph_nodes", "lemma_fires", "gd_ops", "infer_ms")})
+        if bug is None and token in ("2", "2x2"):
+            g = golden[f"{case}@deg2"]
+            check(same_up_to_renaming(r.r_o, g["r_o"]),
+                  f"{r.task_id()}: R_o {r.r_o} is not the golden {g['r_o']}")
+            t = time.perf_counter()
+            got, want = replay(api.build_spec(case, degree=deg,
+                                              device="cuda"), "cuda")
+            torch.cuda.synchronize()
+            rec["replay_ms"] = (time.perf_counter() - t) * 1e3
+            rec["replay_excess"] = max_rel_excess(got, want, 2e-4)
+            rec["replay_max_abs_err"] = max(
+                (got[k].double() - want[k].double()).abs().max().item()
+                for k in want)
+            check(all(v.device.type == "cuda" for v in got.values()),
+                  f"{r.task_id()}: the replay left the card")
+            check(rec["replay_excess"] <= 1.0,
+                  f"{r.task_id()}: replay beyond rtol = atol = 2e-4")
+        print(f"[verify] {json.dumps(rec)}")
+    suite_s = time.perf_counter() - t_suite
+    counts = ops.launch_counts()
+    # --------------------------------------------------------------------
+    check(not any(counts.values()),
+          f"the verify path launched port kernels: {counts}")
+    print(f"[verify] {json.dumps(dict(tasks=len(tasks), suite_s=suite_s,
+                                      verify_s=verify_s, launches=counts))}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -522,6 +599,9 @@ def main():
     model_check_small()
     counts, row_launches, model, prompts, long_prompt = phase2()
     phase3(model, prompts, long_prompt)
+    del model
+    torch.cuda.empty_cache()
+    phase4_verify()
 
     # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)

@@ -1,7 +1,10 @@
-"""PyTorch/CUDA port of the model substrate, for NVIDIA Hopper (H100).
+"""PyTorch/CUDA port of the GraphGuard verifier and its model substrate,
+for NVIDIA Hopper (H100).
 
 The JAX package ``repro`` is the reference; this package never imports it
-(nor ``jax``). Modules mirror ``repro``'s layout: ``configs/``, ``models/``,
-``kernels/`` and ``train/serve.py``. Entry points run on ``cuda`` unless the
+(nor ``jax``). Modules mirror ``repro``'s layout: the verifier's main path
+(``core/``, ``api/``, ``dist/strategies.py``, ``launch/verify.py``,
+``obs/``) and the dense serving path (``configs/``, ``models/``,
+``kernels/``, ``train/serve.py``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """

@@ -31,13 +31,12 @@ def family_module(cfg: ModelConfig):
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda``, which must then exist."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as given, else ``cuda``; a CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; repro_torch runs on "
                            "the GPU unless called with device='cpu'")
-    return torch.device("cuda")
+    return dev
 
 
 def model_spec(cfg: ModelConfig) -> dict:

@@ -1,14 +1,20 @@
-"""The port's kernels on the card, against their plain PyTorch versions.
+"""The port's kernels on the card, against their plain PyTorch versions,
+and the verifier's main path (capture, inference, numeric replay) on it.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file
 imports neither JAX nor the JAX package, so it also runs on the machine
 with the card: ``python -m pytest -q tests/test_torch_cuda.py``.
 """
 import copy
+import json
+import os
 
 import pytest
 import torch
 
+from repro_torch import api as tapi
+from repro_torch.api.replay import max_rel_excess, replay
+from repro_torch.api.report import same_up_to_renaming
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trn
@@ -246,3 +252,37 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
     assert trn.rmsnorm.launches == n0 + 2 * cfg.n_layers + 1
     # fp32 both sides (TF32 is off by default); only sum orders differ
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "suite_degree2.json")
+
+
+@pytest.fixture
+def no_tf32():
+    """The replay holds float32 results to 2e-4; TF32 products would not
+    meet it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", tapi.list_strategies())
+def test_verify_case_on_the_card(cuda_device, no_tf32, case):
+    """The clean case at degree 2 against the golden, its first bug as
+    registered, and the certificate's numeric replay, all on the card."""
+    golden = json.load(open(GOLDEN))[f"{case}@deg2"]
+    r = tapi.verify(case, degree=2, device=cuda_device)
+    assert (r.verdict, r.ok) == (golden["verdict"], True), r.error
+    assert same_up_to_renaming(r.r_o, golden["r_o"])
+    entry = tapi.get_strategy(case)
+    if entry.bugs:
+        b = entry.bugs[0]
+        rb = tapi.verify(case, degree=2, bug=b.name, device=cuda_device)
+        assert rb.ok and rb.expected == b.expected, rb.error
+    got, want = replay(tapi.build_spec(case, degree=2, device=cuda_device),
+                       cuda_device)
+    assert all(v.device.type == "cuda" for v in got.values())
+    assert max_rel_excess(got, want, 2e-4) <= 1.0
