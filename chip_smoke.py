@@ -567,7 +567,7 @@ def phase4_verify():
                                               device="cuda"), "cuda")
             torch.cuda.synchronize()
             rec["replay_ms"] = (time.perf_counter() - t) * 1e3
-            rec["replay_excess"] = max_rel_excess(got, want, 2e-4)
+            rec["replay_excess"] = max_rel_excess(got, want)
             rec["replay_max_abs_err"] = max(
                 (got[k].double() - want[k].double()).abs().max().item()
                 for k in want)

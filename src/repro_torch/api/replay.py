@@ -10,7 +10,7 @@ for every case).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -19,6 +19,10 @@ from ..core.terms import Term, eval_term
 from ..models.registry import resolve_device
 from .runner import capture_task
 from .spec import StrategySpec
+
+SEED = 0        # seed of the input generator
+SCALE = 0.3     # inputs are standard normal times SCALE
+TOL = 2e-4      # rtol = atol, the JAX package's replay test's tolerance
 
 
 def shard_inputs(r_i: dict, inputs: Dict[str, torch.Tensor]) -> dict:
@@ -44,20 +48,19 @@ def shard_inputs(r_i: dict, inputs: Dict[str, torch.Tensor]) -> dict:
     return env
 
 
-def replay(spec: StrategySpec, device=None, seed: int = 0,
-           scale: float = 0.3) -> tuple:
+def replay(spec: StrategySpec, device=None) -> tuple:
     """``(reconstructed, sequential)``: the G_s outputs rebuilt from G_d's
     values through the certificate, and ``spec.seq_fn`` run on the same
-    inputs, as ``{G_s output name: tensor}`` on ``device``. The inputs are
-    standard normal times ``scale``, drawn from a generator seeded with
-    ``seed``. Raises ``RefinementError`` when the task has no
-    certificate."""
+    inputs, as ``{G_s output name: tensor}`` on ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for). The inputs are standard normal times
+    ``SCALE``, drawn from a generator seeded with ``SEED``. Raises
+    ``RefinementError`` when the task has no certificate."""
     dev = resolve_device(device)
     gs, gd, r_i = capture_task(spec, dev)
     cert = check_refinement(gs, gd, r_i)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.Generator(device=dev).manual_seed(SEED)
     values = {n: torch.randn(tuple(shape), generator=g, device=dev,
-                             dtype=dtype) * scale
+                             dtype=dtype) * SCALE
               for n, (shape, dtype) in zip(spec.input_names, spec.avals)}
     env = dict(gd.consts)
     env.update(shard_inputs(r_i, values))
@@ -70,18 +73,15 @@ def replay(spec: StrategySpec, device=None, seed: int = 0,
     return got, {k: want[k] for k in got}
 
 
-def max_rel_excess(got: dict, want: dict, rtol: float,
-                   atol: Optional[float] = None) -> float:
-    """max over outputs of |got - want| / (atol + rtol |want|): at most 1
-    when every element is within tolerance (``atol`` defaults to
-    ``rtol``)."""
-    atol = rtol if atol is None else atol
+def max_rel_excess(got: dict, want: dict) -> float:
+    """max over outputs of |got - want| / (TOL + TOL |want|): at most 1
+    when every element is within rtol = atol = ``TOL``."""
     worst = 0.0
     for k in want:
         a, b = got[k].double(), want[k].double()
         if a.shape != b.shape:
             raise ValueError(f"{k}: shape {tuple(a.shape)} != "
                              f"{tuple(b.shape)}")
-        worst = max(worst, ((a - b).abs() / (atol + rtol * b.abs()))
+        worst = max(worst, ((a - b).abs() / (TOL + TOL * b.abs()))
                     .max().item())
     return worst

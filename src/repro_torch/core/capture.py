@@ -49,6 +49,7 @@ from torch.fx import traceback as fx_traceback
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
 
+from ..models.registry import resolve_device
 from . import spmd
 from . import terms as T
 from .terms import Term
@@ -154,10 +155,12 @@ def _example(aval, device) -> torch.Tensor:
 
 
 def capture(fn: Callable, avals: Sequence, names: Sequence[str],
-            graph_tag: str = "", device="cpu") -> Graph:
+            graph_tag: str = "", device=None) -> Graph:
     """Capture ``fn(*args)`` into a Graph. ``avals`` are ``(shape, dtype)``
-    pairs; the trace runs on zero tensors of those shapes on ``device``."""
-    gm = _trace(fn, [_example(a, device) for a in avals])
+    pairs; the trace runs on zero tensors of those shapes on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for)."""
+    dev = resolve_device(device)
+    gm = _trace(fn, [_example(a, dev) for a in avals])
     return _fx_to_graph(gm, list(names), graph_tag)
 
 
@@ -174,11 +177,13 @@ class SpmdCapture:
 
 def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
                  avals: Sequence, names: Sequence[str],
-                 device="cpu") -> SpmdCapture:
+                 device=None) -> SpmdCapture:
     """Trace the per-rank ``fn`` (or a ``spmd.shard_map`` wrapper, whose
     mesh and specs must agree) on per-shard zero tensors of the global
-    ``avals`` and lower it to a single-rank :class:`Graph` (collectives
-    kept as symbolic ops for ``expand_spmd`` to instantiate)."""
+    ``avals`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for) and
+    lower it to a single-rank :class:`Graph` (collectives kept as symbolic
+    ops for ``expand_spmd`` to instantiate)."""
+    dev = resolve_device(device)
     if isinstance(fn, spmd.ShardMap):
         if dict(fn.mesh_axes) != dict(mesh_axes) \
                 or tuple(fn.in_specs) != tuple(in_specs):
@@ -188,7 +193,7 @@ def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
     local = [(spmd.local_shape(shape, spec, mesh_axes), dtype)
              for (shape, dtype), spec in zip(avals, in_specs)]
     with spmd.mesh(mesh_axes):
-        gm = _trace(fn, [_example(a, device) for a in local])
+        gm = _trace(fn, [_example(a, dev) for a in local])
     g = _fx_to_graph(gm, list(names), "")
     return SpmdCapture(g, dict(mesh_axes), list(in_specs), list(names))
 

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.registry import resolve_device
 from .terms import Term, eval_term, pretty
 
 SCHEMA = 1
@@ -337,14 +338,14 @@ def replay_env(replay: dict, seed: int = 0, device=None) -> dict:
     """Evaluate both graphs on seeded random G_d inputs; returns the full
     ``name -> tensor`` environment every chain term can be read in. The
     inputs are drawn with numpy (the JAX package's draws) and evaluated
-    with torch on ``device`` (the CPU by default).
+    with torch on ``device`` (``cuda`` unless ``"cpu"`` is asked for).
 
     A G_s input with several R_i expressions (one per replica coordinate)
     constrains corresponding G_d leaves to be equal — replicated shards are
     generated once and shared, so the random environment actually satisfies
     R_i."""
     env: dict = {}
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     alias: dict = {}
     for n, objs in replay["r_i"].items():
@@ -377,13 +378,15 @@ def check_explanation(expl: dict, seed: int = 0, device=None) -> dict:
     Checks, per output chain: (1) the chain starts at the output tensor,
     (2) consecutive steps connect (step i's rhs is step i+1's lhs), and
     (3) every step's lhs and rhs evaluate to the same value on seeded
-    random inputs.  Returns ``{"ok", "checked_steps", "failures"}`` — any
-    tampered, reordered, or fabricated step lands in ``failures``."""
+    random inputs on ``device`` (``cuda`` unless ``"cpu"`` is asked for).
+    Returns ``{"ok", "checked_steps", "failures"}`` — any tampered,
+    reordered, or fabricated step lands in ``failures``."""
     failures: list = []
     checked = 0
     if expl.get("kind") != "certificate":
         return {"ok": False, "checked_steps": 0,
                 "failures": ["not a certificate explanation"]}
+    device = resolve_device(device)    # no card and no "cpu": raise
     try:
         env = replay_env(expl["replay"], seed=seed, device=device)
     except Exception as e:  # noqa: BLE001 - any replay failure is a finding

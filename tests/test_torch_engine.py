@@ -140,7 +140,7 @@ def test_named_targets():
 def test_port_explanation_replays(case):
     """The port's replay checker accepts the port's own lemma chains."""
     cert = check_refinement(*_carried(*_jax_capture(case, 2)), explain=True)
-    res = check_explanation(cert.explanation)
+    res = check_explanation(cert.explanation, device="cpu")
     assert res["ok"], res["failures"]
     assert res["checked_steps"] == cert.explanation["total_steps"]
 
