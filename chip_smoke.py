@@ -39,7 +39,23 @@ seeded generator, sharded per R_i, G_d evaluated with eval_term, the
 outputs rebuilt through R_o) against the sequential fragment run on the
 card, at rtol = atol = 2e-4 with TF32 off. It prints one JSON record per
 task beside the JAX package's counts from BENCH_verify.json, and checks
-that the path launched no kernel (it reaches neither).
+that the path launched no kernel (it reaches neither). Phase 5 runs the
+verifier's runtime on the card, with CUDA already up in this process:
+the time a spawned worker takes to start (interpreter, imports, CUDA
+context); the same 58 tasks through repro_torch.api.Suite on 2 and then
+4 spawned workers, cache off, each task's stable summary byte-identical
+to phase 4's, none degraded to in-process, every worker's task span
+traced on cuda with all its kernel launch counts 0, and the traced run
+written as a Chrome trace with one track per worker that
+`python -m repro_torch.obs report` reads to its top lemma; the
+certificate cache cold, warm (all 58 hits) and with its journal's last
+line torn (one task proved again); an injected crash (tp_layer@deg2:
+error, SIGSEGV, 3 attempts) and hang (pp_stage@deg2, 20 s budget:
+timeout) charged to their victims only, each on a pool started after
+the chaos variables are set; capture_function on the 11 cases at degree
+2 against run_spec, byte for byte; --fn on the port's example in a
+subprocess (exit 0, and 1 for the buggy variant); and --explain on a
+case bug giving the CPU's failure frontier. It prints each wall time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record. Any failure raises and exits non-zero, and the
@@ -532,6 +548,7 @@ def phase4_verify():
     tasks = [(case, deg, bug) for case in api.list_strategies()
              for deg in api.get_strategy(case).degrees
              for bug in (None,) + api.get_strategy(case).bug_names()]
+    summaries = {}
     ops.reset_launch_counts()
     # --- the verify path: launches from here to the read are counted ---
     t_suite, verify_s = time.perf_counter(), 0.0
@@ -540,6 +557,8 @@ def phase4_verify():
         verify_s += r.wall_s
         check(r.ok, f"{r.task_id()}: verdict {r.verdict} against the "
               f"expected {r.expected} ({r.error})")
+        summaries[r.task_id()] = json.dumps(r.stable_summary(),
+                                            sort_keys=True)
         stats = r.stats or {}
         token = api.degree_token(deg)
         jax = bench["fam_scaling"].get(f"{case}_deg{token}") \
@@ -583,6 +602,280 @@ def phase4_verify():
           f"the verify path launched port kernels: {counts}")
     print(f"[verify] {json.dumps(dict(tasks=len(tasks), suite_s=suite_s,
                                       verify_s=verify_s, launches=counts))}")
+    return summaries, verify_s
+
+
+def _summaries(result):
+    return {r.task_id(): json.dumps(r.stable_summary(), sort_keys=True)
+            for r in result}
+
+
+def _check_pooled(result, want, what):
+    """Every task of a pooled run as the in-process run gave it, and none
+    run by the in-process degradation."""
+    got = _summaries(result)
+    diff = sorted(k for k in got if got[k] != want.get(k))
+    check(not diff, f"{what}: tasks differ from the in-process run: {diff}")
+    degraded = [r.task_id() for r in result
+                if (r.runtime or {}).get("degraded_reason")]
+    check(not degraded, f"{what}: tasks degraded to in-process: {degraded}")
+
+
+def _worker_spans(tracer):
+    return [e for e in tracer.events
+            if e.get("name") == "task" and e.get("ph") == "X"
+            and e["pid"] != tracer.pid]
+
+
+def _traced(run):
+    """``run()`` under a fresh tracer: its value and the tracer."""
+    from repro_torch.obs import trace as obs_trace
+    tracer = obs_trace.start("main")
+    try:
+        return run(), tracer
+    finally:
+        obs_trace.stop()
+
+
+def _check_worker_spans(tracer, device, what, cases=True):
+    """Every worker ``task`` span of a traced pooled run: the worker's
+    device is ``device``, its CUDA state agrees, it launched no kernel
+    and, for a case task (``cases``), every capture inside the span made
+    its tracing tensors on ``device`` (the ``inputs`` events, which name
+    the device of the tensors themselves). Returns the spans."""
+    spans = _worker_spans(tracer)
+    made = [e for e in tracer.events if e.get("name") == "inputs"
+            and e["pid"] != tracer.pid]
+    for e in spans:
+        a = e["args"]
+        check(a["device"] == device
+              and a["cuda_initialized"] == (device == "cuda"),
+              f"{what}: {a['key']} did not run on the card: {a}")
+        check(a["launches"] and not any(a["launches"].values()),
+              f"{what}: {a['key']}: its worker launched kernels: "
+              f"{a['launches']}")
+        if cases:
+            on = [i["args"]["device"] for i in made if i["pid"] == e["pid"]
+                  and e["ts"] <= i["ts"] <= e["ts"] + e["dur"]]
+            check(len(on) >= 2 and all(torch.device(d).type == device
+                                       for d in on),
+                  f"{what}: {a['key']} traced on {on}, not {device}")
+    return spans
+
+
+def phase5_runtime(inproc, inproc_s, smi, device="cuda"):
+    """The verifier's runtime on the card: the suite on spawned workers
+    (CUDA already up in this process) against phase 4's in-process run,
+    the certificate cache, injected crashes and hangs charged to their
+    victims, --fn, tracing and explanations. ``device="cpu"`` rehearses
+    it without a card."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch import api
+    from repro_torch.api.functions import run_functions
+    from repro_torch.api.suite import _run_task as run_task
+    from repro_torch.kernels import ops
+    from repro_torch.launch import verify as cli
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.runtime import (CertificateCache, RuntimeTask,
+                                     SupervisedPool, chaos)
+    t_phase = time.perf_counter()
+    timings = dict(card=smi, workers0_s=inproc_s)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ops.reset_launch_counts()
+    # --- the runtime path: launches from here to the read are counted ---
+
+    # a worker's start-up: the heartbeat manager, then the worker (spawn,
+    # imports, CUDA context) and one tiny task; then one case twice on
+    # the same worker (the first pays the worker's first capture)
+    t = time.perf_counter()
+    tracer = obs_trace.start("main")
+    try:
+        with SupervisedPool(1, device=device) as pool:
+            pool._ensure_heartbeats()
+            timings["manager_start_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            first = pool.execute([RuntimeTask("startup", os.getpid)])
+            timings["worker_startup_s"] = time.perf_counter() - t
+            for key in ("first_case", "second_case"):
+                t = time.perf_counter()
+                case = pool.execute([RuntimeTask(
+                    key, run_task, (("tp_layer", 2, None), None, device))])
+                timings[f"{key}_s"] = time.perf_counter() - t
+                check(case[key].ok and json.dumps(
+                    api.Report.from_json(case[key].value).stable_summary(),
+                    sort_keys=True) == inproc["tp_layer@deg2"],
+                      f"{key} on the worker: {case[key]}")
+    finally:
+        obs_trace.stop()
+    check(first["startup"].ok and first["startup"].value != os.getpid(),
+          f"startup task: {first['startup']}")
+    spans = _worker_spans(tracer)
+    timings["worker_startup_split"] = spans[0]["args"]["startup"]
+    _check_worker_spans(tracer, device, "start-up", cases=False)
+    check(sorted(e["args"]["key"] for e in spans) == [
+        "first_case", "second_case", "startup"], "start-up: task spans")
+
+    # the whole matrix, pooled, cache off, traced: 2 workers, then 4
+    with api.Suite(include_bugs=True) as s:
+        res2, tracer = _traced(lambda: s.run(
+            workers=2, timeout_s=300.0, cache=False, device=device))
+    _check_pooled(res2, inproc, "workers=2")
+    timings["workers2_s"], timings["workers2_pool"] = res2.wall_s, \
+        res2.runtime
+    spans = _check_worker_spans(tracer, device, "workers=2")
+    check(len(spans) == 58 and len({e["pid"] for e in spans}) == 2,
+          f"workers=2: {len(spans)} task spans")
+    trace_dir = Path(tempfile.mkdtemp(prefix="phase5_"))
+    suite4 = api.Suite(include_bugs=True)
+    res4, tracer = _traced(lambda: suite4.run(
+        workers=4, timeout_s=300.0, cache=False, device=device))
+    _check_pooled(res4, inproc, "workers=4")
+    timings["workers4_s"], timings["workers4_pool"] = res4.wall_s, \
+        res4.runtime
+    check(len(res4) == len(inproc) == 58, f"{len(res4)} tasks, not 58")
+    spans = _check_worker_spans(tracer, device, "workers=4")
+    pids = {e["pid"] for e in spans}
+    check(len(spans) == 58 and len(pids) == 4,
+          f"{len(spans)} worker task spans from {len(pids)} workers")
+    trace_path = trace_dir / "suite4.json"
+    tracer.write_chrome(str(trace_path))
+    tracer.write_jsonl(str(trace_path) + ".jsonl")
+    tracks = {e["pid"] for e in obs_trace.load_events(str(trace_path))
+              if e.get("name") == "process_name"}
+    check(pids < tracks and tracer.pid in tracks,
+          f"trace tracks {sorted(tracks)} lack a worker of {sorted(pids)}")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.obs", "report",
+                          str(trace_path)], capture_output=True, text=True,
+                         timeout=120, env=env)
+    last = rep.stdout.rstrip().splitlines()[-1] if rep.stdout.strip() else ""
+    check(rep.returncode == 0 and last.startswith("top lemma: "),
+          f"obs report: rc {rep.returncode}, last line {last!r}")
+    timings["trace_tracks"], timings["top_lemma"] = len(tracks), last
+
+    # the cache: cold into a fresh directory, warm, then a torn last line
+    cache_dir = trace_dir / "cache"
+    cold, tracer = _traced(lambda: suite4.run(
+        workers=4, timeout_s=300.0, cache=cache_dir, device=device))
+    _check_pooled(cold, inproc, "cold cache")
+    check((cold.cache["misses"], cold.cache["hits"]) == (58, 0),
+          f"cold cache: {cold.cache}")
+    check(len(_check_worker_spans(tracer, device, "cold cache")) == 58,
+          "cold cache: not every task ran on a worker")
+    t = time.perf_counter()
+    warm, tracer = _traced(lambda: suite4.run(
+        workers=4, timeout_s=300.0, cache=cache_dir, device=device))
+    timings["cache_warm_s"] = time.perf_counter() - t
+    check(not _worker_spans(tracer), "warm cache: a task ran on a worker")
+    suite4.shutdown()
+    timings["cache_cold_s"] = cold.wall_s
+    _check_pooled(warm, inproc, "warm cache")
+    check(warm.cache["hits"] == 58 and all(r.runtime == {"cache": "hit"}
+                                           for r in warm),
+          f"warm cache: {warm.cache}")
+    journal = CertificateCache(cache_dir).journal_path
+    raw = Path(journal).read_bytes()
+    Path(journal).write_bytes(raw[:-10])
+    torn = api.Suite(include_bugs=True).run(workers=0, cache=cache_dir,
+                                            device=device)
+    _check_pooled(torn, inproc, "torn journal")
+    check((torn.cache["misses"], torn.cache["recovered_corrupt"]) == (1, 1),
+          f"torn journal: {torn.cache}")
+
+    # chaos: each leg starts its own pool after setting the environment
+    # (spawned workers read it when they start); the degree-2 matrix
+    # without tp_dp_2d (whose degree-2 id is not one of phase 4's)
+    # (each victim's case is put last: once it fails nothing is left to
+    # resume, so no replacement pool is spawned for bystanders)
+    cases = [c for c in api.list_strategies() if c != "tp_dp_2d"]
+    for mode, victim, budget in (("crash", "tp_layer@deg2", 300.0),
+                                 ("hang", "pp_stage@deg2", 20.0)):
+        order = [c for c in cases if c != victim.split("@")[0]] \
+            + [victim.split("@")[0]]
+        os.environ[chaos.ENV_SPEC] = f"{mode}:1"
+        os.environ[chaos.ENV_TARGET] = victim
+        try:
+            with api.Suite(cases=order, degrees=(2,)) as s:
+                hit, tracer = _traced(lambda: s.run(
+                    workers=2, timeout_s=budget, cache=False,
+                    device=device))
+        finally:
+            os.environ.pop(chaos.ENV_SPEC)
+            os.environ.pop(chaos.ENV_TARGET)
+        by = {r.task_id(): r for r in hit}
+        v = by.pop(victim)
+        ran = {e["args"]["key"]
+               for e in _check_worker_spans(tracer, device, mode)}
+        check(set(by) <= ran and victim not in ran,
+              f"{mode}: worker spans for {sorted(ran)}")
+        if mode == "crash":
+            check(v.verdict == "error" and "SIGSEGV" in (v.error or "")
+                  and v.runtime.get("attempts") == 3,
+                  f"crash victim: {v.verdict} {v.error} {v.runtime}")
+        else:
+            check(v.verdict == "timeout" and "budget" in (v.error or ""),
+                  f"hang victim: {v.verdict} {v.error}")
+        rest = api.SuiteResult(list(by.values()), 0.0, 2)
+        _check_pooled(rest, inproc, f"{mode} survivors")
+        timings[f"{mode}_leg_s"] = hit.wall_s
+        print(f"[runtime] {mode}:1 on {victim}: {v.verdict} — {v.error}")
+    check(float((torch.ones(4, device=device) * 2).sum()) == 8.0,
+          "the card is unusable after the chaos legs")
+
+    # --fn: the generic frontend on the card, against the registry
+    for case in api.list_strategies():
+        spec = api.build_spec(case, degree=2, device=device)
+        want = api.run_spec(spec, device=device).to_json()
+        got = run_functions(spec.seq_fn, spec.dist_fn, spec.mesh_axes,
+                            spec.in_specs, spec.avals, spec.input_names,
+                            device=device).to_json()
+        check(json.dumps(got["r_o"], sort_keys=True)
+              == json.dumps(want["r_o"], sort_keys=True)
+              and all(got["stats"][k] == want["stats"][k]
+                      for k in ("egraph_nodes", "gs_ops", "gd_ops",
+                                "lemma_fires")),
+              f"{case}: capture_function's certificate is not run_spec's")
+    # the CLI on the example and its buggy variant, two processes at once
+    t = time.perf_counter()
+    procs = {target: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.verify", "--fn",
+         f"repro_torch.verify_your_own_fn:{target}", "--json",
+         "--device", device], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for target in ("make_task", "make_buggy_task")}
+    outs = {target: p.communicate(timeout=300) + (p.returncode,)
+            for target, p in procs.items()}
+    timings["fn_cli_s"] = time.perf_counter() - t
+    for target, rc, verdict in (("make_task", 0, "certificate"),
+                                ("make_buggy_task", 1, "refinement_error")):
+        out, err, code = outs[target]
+        check(code == rc, f"--fn {target}: exit {code} ({err[-2000:]})")
+        got = json.loads(out)["report"]
+        check(got["verdict"] == verdict and (got["r_o"] if rc == 0
+                                             else got["localization"]),
+              f"--fn {target}: {got['verdict']}")
+
+    # --explain on a case bug: the card's failure frontier is the CPU's
+    def explained(device):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                cli.main(["--case", "sp_rope", "--bug", "rope_offset",
+                          "--json", "--explain", "--device", device])
+            except SystemExit as e:
+                check(e.code == 1, f"--explain exit {e.code}")
+        return json.loads(out.getvalue())["explanation"]
+    on_card, on_cpu = explained(device), explained("cpu")
+    check(on_card == on_cpu and on_card["kind"] == "failure_frontier",
+          "--explain: the card's frontier is not the CPU's")
+
+    counts = ops.launch_counts()
+    # --------------------------------------------------------------------
+    check(not any(counts.values()),
+          f"the runtime path launched port kernels: {counts}")
+    timings["phase5_s"] = time.perf_counter() - t_phase
+    timings["launches"] = counts
+    print(f"[runtime] {json.dumps(timings)}")
 
 
 def main():
@@ -601,7 +894,8 @@ def main():
     phase3(model, prompts, long_prompt)
     del model
     torch.cuda.empty_cache()
-    phase4_verify()
+    inproc, inproc_s = phase4_verify()
+    phase5_runtime(inproc, inproc_s, smi)
 
     # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)

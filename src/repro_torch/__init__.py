@@ -4,7 +4,8 @@ for NVIDIA Hopper (H100).
 The JAX package ``repro`` is the reference; this package never imports it
 (nor ``jax``). Modules mirror ``repro``'s layout: the verifier's main path
 (``core/``, ``api/``, ``dist/strategies.py``, ``launch/verify.py``,
-``obs/``) and the dense serving path (``configs/``, ``models/``,
+``obs/``), its runtime (``runtime/``: spawned supervised pool, certificate
+cache, chaos) and the dense serving path (``configs/``, ``models/``,
 ``kernels/``, ``train/serve.py``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """

@@ -6,6 +6,9 @@ Public API:
                                            against (PartitionSpec,
                                            shard_map, collectives)
     strict_capture, UnsupportedPrimitive — strict capture frontend
+    capture_function,                    — trace arbitrary function pairs
+    capture_spmd_function,                 (always strict)
+    normalize_mesh
     check_refinement, GraphGuard         — iterative relation inference
     Certificate, RefinementError         — results
     register_lemma                       — user lemma extension point
@@ -14,7 +17,8 @@ from . import spmd, terms
 from .capture import (Graph, CaptureError, SpmdCapture, capture,
                       capture_spmd, expand_spmd, derive_input_relation)
 from .from_fx import (SUPPORTED_PRIMITIVES, UnsupportedPrimitive,
-                      strict_capture)
+                      capture_function, capture_spmd_function,
+                      normalize_mesh, strict_capture)
 from .egraph import EGraph, Lemma, EGraphLimit, EGraphShapeError
 from .infer import Certificate, GraphGuard, RefinementError, check_refinement
 from .lemmas import all_lemmas, register_lemma
@@ -24,7 +28,8 @@ from .symbolic import AffExpr, ScalarSolver, NonAffine
 __all__ = [
     "Graph", "CaptureError", "SpmdCapture", "capture", "capture_spmd",
     "expand_spmd", "derive_input_relation", "spmd", "SUPPORTED_PRIMITIVES",
-    "UnsupportedPrimitive", "strict_capture", "EGraph", "Lemma",
+    "UnsupportedPrimitive", "strict_capture", "capture_function",
+    "capture_spmd_function", "normalize_mesh", "EGraph", "Lemma",
     "EGraphLimit", "EGraphShapeError", "Certificate", "GraphGuard",
     "RefinementError", "check_refinement", "all_lemmas", "register_lemma",
     "AffExpr", "ScalarSolver", "NonAffine", "terms", "CONFIG", "OptConfig",

@@ -50,6 +50,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
 
 from ..models.registry import resolve_device
+from ..obs import trace as obs_trace
 from . import spmd
 from . import terms as T
 from .terms import Term
@@ -149,18 +150,33 @@ def _trace(fn: Callable, args: list):
         return make_fx(fn, tracing_mode="real")(*args)
 
 
-def _example(aval, device) -> torch.Tensor:
-    shape, dtype = aval
-    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+def _examples(avals: Sequence, device) -> list:
+    """The tracing tensors for ``avals`` on ``device``: floating inputs
+    drawn in order from one ``torch.Generator`` on the device seeded with
+    0, the others zeros (valid as indices). ``make_fx`` runs in real mode,
+    so the draw only has to be the same on every run; the graph does not
+    depend on it. An ``inputs`` event on the installed tracer records the
+    device the tensors were made on."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for shape, dtype in avals:
+        if dtype.is_floating_point or dtype.is_complex:
+            out.append(torch.randn(tuple(shape), generator=gen, dtype=dtype,
+                                   device=device))
+        else:
+            out.append(torch.zeros(tuple(shape), dtype=dtype, device=device))
+    obs_trace.event("inputs", cat="capture",
+                    device=str(out[0].device) if out else str(device))
+    return out
 
 
 def capture(fn: Callable, avals: Sequence, names: Sequence[str],
             graph_tag: str = "", device=None) -> Graph:
     """Capture ``fn(*args)`` into a Graph. ``avals`` are ``(shape, dtype)``
-    pairs; the trace runs on zero tensors of those shapes on ``device``
-    (``cuda`` unless ``"cpu"`` is asked for)."""
+    pairs; the trace runs on tensors of those shapes on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for), made by :func:`_examples`."""
     dev = resolve_device(device)
-    gm = _trace(fn, [_example(a, dev) for a in avals])
+    gm = _trace(fn, _examples(avals, dev))
     return _fx_to_graph(gm, list(names), graph_tag)
 
 
@@ -179,9 +195,10 @@ def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
                  avals: Sequence, names: Sequence[str],
                  device=None) -> SpmdCapture:
     """Trace the per-rank ``fn`` (or a ``spmd.shard_map`` wrapper, whose
-    mesh and specs must agree) on per-shard zero tensors of the global
-    ``avals`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for) and
-    lower it to a single-rank :class:`Graph` (collectives kept as symbolic
+    mesh and specs must agree) on per-shard tensors of the global
+    ``avals`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for; made
+    by :func:`_examples`) and lower it to a
+    single-rank :class:`Graph` (collectives kept as symbolic
     ops for ``expand_spmd`` to instantiate)."""
     dev = resolve_device(device)
     if isinstance(fn, spmd.ShardMap):
@@ -193,7 +210,7 @@ def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
     local = [(spmd.local_shape(shape, spec, mesh_axes), dtype)
              for (shape, dtype), spec in zip(avals, in_specs)]
     with spmd.mesh(mesh_axes):
-        gm = _trace(fn, [_example(a, dev) for a in local])
+        gm = _trace(fn, _examples(local, dev))
     g = _fx_to_graph(gm, list(names), "")
     return SpmdCapture(g, dict(mesh_axes), list(in_specs), list(names))
 

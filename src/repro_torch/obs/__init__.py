@@ -1,25 +1,30 @@
 """``repro_torch.obs`` — dependency-free tracing + metrics for the verifier.
 
-The part of the JAX package's ``repro.obs`` that the engine uses:
+Two independent facilities, both zero-cost when idle:
 
 * :mod:`repro_torch.obs.trace` — a :class:`Tracer` recording nested spans,
-  instant events and counter samples per process as Chrome/Perfetto trace
-  events (:meth:`Tracer.chrome_trace`); :func:`span` is a no-op when no
-  tracer is installed. Its export to files and the trace inspector are
-  not ported yet (ROADMAP queue 1, item 9).
+  instant events and counter samples per process, merged across
+  ``SupervisedPool`` workers through the pool's ``Manager`` plumbing, and
+  exported as a Chrome/Perfetto ``trace.json`` plus a JSONL event log.
 * :mod:`repro_torch.obs.metrics` — a process-local registry of counters and
-  bounded histograms (lemma fires, e-graph growth, frontier sizes).
+  bounded histograms (lemma fires, e-graph growth, queue wait vs run wall,
+  cache hit ratio, retry/degradation counts).
+
+Inspection: ``python -m repro_torch.obs report trace.json`` renders the top
+lemmas by time, the slowest tasks with their queue-vs-run split, a
+per-worker pool timeline, cache savings and any fault events.
 
 Observability is behaviour-neutral: certificates and stable summaries are
-the same with tracing on or off.
+the same with tracing on or off, and the package is left out of the
+certificate cache's engine fingerprint.
 """
 from . import metrics
 from .metrics import REGISTRY
-from .trace import (Tracer, counter, current, event, install, span, start,
-                    stop)
+from .trace import (Tracer, complete, counter, current, event, install,
+                    span, start, stop)
 
 __all__ = [
     "Tracer", "start", "stop", "current", "install",
-    "span", "event", "counter",
+    "span", "event", "counter", "complete",
     "metrics", "REGISTRY",
 ]

@@ -8,18 +8,21 @@ then a modular ring) so quantile estimates cost O(1) memory no matter
 how hot the path is.
 
 The registry is observational only: nothing in certificates, goldens,
-or stable summaries reads it.
+or stable summaries reads it.  ``launch/verify.py --metrics`` prints
+:func:`render` to stderr and adds :meth:`MetricsRegistry.snapshot` to
+the JSON envelope under the ``metrics`` key (only under the flag, so
+the schema-v2 key set stays pinned otherwise).
 
-Metric names (the JAX package's inventory): ``engine.runs``,
-``engine.lemma_fires``, ``engine.infer_s``, ``engine.egraph_nodes``,
-``engine.frontier_ready``, ``pool.tasks``, ``pool.queue_s``,
-``pool.run_s``, ``pool.retries``, ``pool.timeouts``, ``pool.broken``,
-``pool.degraded``, ``cache.hits``, ``cache.misses``, ``cache.commits``,
-``chaos.injected``.
+Metric name inventory (the JAX package's, ``docs/OBSERVABILITY.md``):
+``engine.runs``, ``engine.lemma_fires``, ``engine.infer_s``,
+``engine.egraph_nodes``, ``engine.frontier_ready``, ``pool.tasks``,
+``pool.queue_s``, ``pool.run_s``, ``pool.retries``, ``pool.timeouts``,
+``pool.broken``, ``pool.degraded``, ``cache.hits``, ``cache.misses``,
+``cache.commits``, ``chaos.injected``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 
 class Counter:
@@ -118,9 +121,32 @@ class MetricsRegistry:
         }
 
     def reset(self) -> None:
-        """Drop every instrument."""
+        """Drop every instrument (used at the start of a ``--metrics`` run
+        so the report covers exactly that invocation)."""
         self._counters.clear()
         self._histograms.clear()
 
 
 REGISTRY = MetricsRegistry()
+
+
+def render(snapshot: Optional[Union[dict, MetricsRegistry]] = None) -> str:
+    """Human-readable table of a registry snapshot (default: the global)."""
+    if snapshot is None:
+        snapshot = REGISTRY
+    if isinstance(snapshot, MetricsRegistry):
+        snapshot = snapshot.snapshot()
+    lines = ["-- metrics --"]
+    counters = snapshot.get("counters", {})
+    for name in sorted(counters):
+        lines.append(f"{name:<28} {counters[name]}")
+    for name, h in sorted(snapshot.get("histograms", {}).items()):
+        if not h.get("count"):
+            continue
+        lines.append(
+            f"{name:<28} n={h['count']} sum={h['sum']:.4g} "
+            f"mean={h['mean']:.4g} p50={h['p50']:.4g} "
+            f"p95={h['p95']:.4g} max={h['max']:.4g}")
+    if len(lines) == 1:
+        lines.append("(no metrics recorded)")
+    return "\n".join(lines)

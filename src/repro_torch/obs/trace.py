@@ -1,4 +1,4 @@
-"""Structured tracing: nested spans + instant events, as Chrome trace events.
+"""Structured tracing: nested spans + instant events, Chrome-exportable.
 
 One :class:`Tracer` per process.  Spans are recorded as Chrome trace
 "complete" events (``ph: "X"``) with microsecond epoch timestamps; all
@@ -7,16 +7,24 @@ anchor captured at tracer construction, so span nesting within a thread
 is well-formed by construction (no clock mixing).  Appends go straight
 to a plain list — atomic under the GIL, no locks on the hot path.
 
-Module-level :func:`span` / :func:`event` / :func:`counter` dispatch to
-the installed tracer and are no-ops (a shared null context manager / an
-early return) when tracing is off — instrumented code never needs an
-``if`` guard.
+Cross-process merging: ``SupervisedPool`` workers install their own
+tracer inside the worker shim, wrap the task in a ``task`` span, and
+ship the event batch back through the pool's existing ``Manager``
+plumbing; the parent tracer :meth:`Tracer.absorb`\\ s them, keeping each
+worker's real ``pid`` so the Perfetto timeline shows one track per
+worker process.
+
+Module-level :func:`span` / :func:`event` / :func:`counter` /
+:func:`complete` dispatch to the installed tracer and are no-ops (a
+shared null context manager / an early return) when tracing is off —
+instrumented code never needs an ``if`` guard.
 
 Chrome trace event format reference:
 https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -135,12 +143,58 @@ class Tracer:
         code that already times itself (e.g. the engine's phase timers)."""
         self._emit_x(name, cat, t0_perf, t1_perf, dict(attrs))
 
+    def complete(self, name: str, start_epoch_s: float, end_epoch_s: float,
+                 cat: str = "pool", **attrs: Any) -> None:
+        """Record a span from explicit epoch endpoints.
+
+        Used by the pool supervisor to reconstruct per-task ``queue`` and
+        ``run`` intervals from its bookkeeping (submit time, heartbeat
+        start, completion) — these wall-clock spans live on the parent
+        timeline and are exempt from the perf-anchored nesting guarantee.
+        """
+        if end_epoch_s < start_epoch_s:
+            start_epoch_s = end_epoch_s
+        self.events.append({
+            "name": name, "cat": cat, "ph": "X",
+            "ts": round(start_epoch_s * 1e6, 3),
+            "dur": round((end_epoch_s - start_epoch_s) * 1e6, 3),
+            "pid": self.pid, "tid": threading.get_ident() & 0xFFFFFFFF,
+            "args": attrs})
+
+    def absorb(self, events: List[dict]) -> None:
+        """Merge an event batch shipped from another process (worker pids
+        are preserved, giving each worker its own Perfetto track)."""
+        self.events.extend(events)
+
     # -- export -------------------------------------------------------------
     def chrome_trace(self) -> dict:
         """The Chrome/Perfetto ``trace.json`` object (displayTimeUnit ms)."""
         evs = sorted(self.events,
                      key=lambda e: (e.get("ph") != "M", e.get("ts", 0.0)))
         return {"traceEvents": evs, "displayTimeUnit": "ms"}
+
+    def write_chrome(self, path: str) -> None:
+        """Write the Chrome/Perfetto trace JSON to ``path`` (gzipped when
+        the path ends in ``.gz`` — Perfetto loads those directly)."""
+        with _open_text(path, "wt") as f:
+            json.dump(self.chrome_trace(), f)
+
+    def write_jsonl(self, path: str) -> None:
+        """Write one event per line (ts-sorted) — the grep-friendly log
+        (``zcat``-friendly when the path ends in ``.gz``)."""
+        evs = sorted((e for e in self.events if e.get("ph") != "M"),
+                     key=lambda e: e.get("ts", 0.0))
+        with _open_text(path, "wt") as f:
+            for e in evs:
+                f.write(json.dumps(e) + "\n")
+
+
+def _open_text(path: str, mode: str):
+    """Text-mode open that is transparent to a ``.gz`` suffix."""
+    if path.endswith(".gz"):
+        import gzip
+        return gzip.open(path, mode)
+    return open(path, mode.rstrip("t") or "r")
 
 
 # -- module-level dispatch (no-op when no tracer installed) -----------------
@@ -189,3 +243,29 @@ def counter(name: str, cat: str = "metric", **values: float) -> None:
     t = _ACTIVE
     if t is not None:
         t.counter(name, cat, **values)
+
+
+def complete(name: str, start_epoch_s: float, end_epoch_s: float,
+             cat: str = "pool", **attrs: Any) -> None:
+    """Explicit-endpoint span on the installed tracer; no-op when off."""
+    t = _ACTIVE
+    if t is not None:
+        t.complete(name, start_epoch_s, end_epoch_s, cat, **attrs)
+
+
+def load_events(path: str) -> List[dict]:
+    """Load events from a ``trace.json`` (Chrome object) or ``.jsonl`` log.
+
+    Accepts either export format (gzipped or not — a ``.gz`` suffix is
+    decompressed transparently) so ``repro_torch.obs report`` works on all.
+    """
+    with _open_text(path, "rt") as f:
+        text = f.read()
+    try:
+        obj = json.loads(text)
+    except json.JSONDecodeError:         # more than one line: JSONL
+        return [json.loads(line) for line in text.splitlines()
+                if line.strip()]
+    if isinstance(obj, dict) and "traceEvents" in obj:
+        return list(obj["traceEvents"])
+    return [obj] if isinstance(obj, dict) else list(obj)

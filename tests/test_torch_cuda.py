@@ -306,3 +306,52 @@ def test_unsupported_op_names_the_users_line_on_the_card(cuda_device):
     assert exc.value.primitive == "aten.cumprod"
     assert exc.value.source.startswith(f"{os.path.abspath(__file__)}:{line}")
     assert f"test_torch_cuda.py:{line} (_unsupported)" in str(exc.value)
+
+
+@pytest.mark.cuda
+def test_pooled_suite_after_cuda_in_the_parent(cuda_device, no_tf32):
+    """Spawned workers after the parent made its CUDA context (a forked
+    one could not use the card): the pooled suite gives the in-process
+    summaries, every worker traced on the card and launched no kernel."""
+    from repro_torch.obs import trace as obs_trace
+    (torch.ones(1, device=cuda_device) * 2).sum().item()
+    cases, degrees = ["tp_layer", "sp_rope", "ep_moe"], (2,)
+    inline = tapi.Suite(cases=cases, degrees=degrees, include_bugs=True) \
+        .run(workers=0, device="cuda")
+    tracer = obs_trace.start("main")
+    try:
+        with tapi.Suite(cases=cases, degrees=degrees,
+                        include_bugs=True) as s:
+            pooled = s.run(workers=2, timeout_s=300.0, device="cuda")
+    finally:
+        obs_trace.stop()
+    assert pooled.stable_summary() == inline.stable_summary()
+    assert not any((r.runtime or {}).get("degraded_reason") for r in pooled)
+    spans = [e for e in tracer.events if e.get("name") == "task"]
+    assert len(spans) == len(pooled)
+    for e in spans:
+        assert e["args"]["device"] == "cuda"
+        assert e["args"]["cuda_initialized"] is True
+        assert not any(e["args"]["launches"].values())
+
+
+@pytest.mark.cuda
+def test_fn_cli_on_the_card(cuda_device):
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    for target, rc in (("make_task", 0), ("make_buggy_task", 1)):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.verify", "--fn",
+             f"repro_torch.verify_your_own_fn:{target}", "--json"],
+            capture_output=True, text=True, timeout=300, env=env)
+        assert r.returncode == rc, r.stderr
+        rep = json.loads(r.stdout)["report"]
+        if rc == 0:
+            assert rep["verdict"] == "certificate"
+            assert rep["r_o"] == {"t2": "t3@tp0"}
+        else:
+            assert rep["verdict"] == "refinement_error"
+            assert rep["localization"]["op_name"] == "output-filter"
