@@ -1,0 +1,12 @@
+"""gemma3-27b [dense]: 62L d_model=5376 32H (GQA kv=16) d_ff=21504
+vocab=262144 — 5:1 local:global, 128k context [hf:google/gemma-3-1b-pt]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma3-27b", family="dense",
+    n_layers=62, d_model=5376, n_heads=32, n_kv_heads=16, d_ff=21504,
+    vocab=262144, head_dim=128,
+    pattern=("local",) * 5 + ("global",), window=1024,
+    rope_theta=1_000_000.0, logit_softcap=0.0, tie_embeddings=True,
+    citation="hf:google/gemma-3-1b-pt (family card, 27b variant)",
+)

@@ -205,7 +205,7 @@ constexpr size_t smem_bytes() {
 }
 
 // The head dims the kernel is built for, each with its q tile (BQ rows).
-#define REPRO_FA_HEAD_DIMS(X) X(32, 64) X(64, 64) X(128, 64) X(256, 32)
+#define REPRO_FA_HEAD_DIMS(X) X(32, 64) X(64, 64) X(112, 64) X(128, 64) X(256, 32)
 
 template <typename T, int HD, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,

@@ -29,7 +29,13 @@
 //    read from shared memory as an MN-major B operand.
 // TMA writes every tile with the 128-byte swizzle (64-byte at hd 32) in
 // blocks of one swizzle width of columns, and the wgmma descriptors read
-// that layout. TMA fills rows past S with zeros; the score mask kj >= S is
+// that layout.
+// Head dim 112 (kimi-k2) runs on the hd-128 tile: a 224-byte row does not
+// fill whole 128-byte swizzle blocks, so the tensor maps keep the real
+// width (globalDim[0] = 112) under two 64-column boxes, TMA fills columns
+// 112-127 with zeros, Q K^T is unchanged by them and P V's extra output
+// columns are 0, and the epilogue stores 112 columns. The cost is 14% more
+// MMA work than a tile of 112 would do. TMA fills rows past S with zeros; the score mask kj >= S is
 // still applied, as a zero K row scores 0, not -inf.
 // Tensor maps are 4-D (hd, heads, S, B) over the caller's strides, built on
 // the host at each call (cuTensorMapEncodeTiled through the runtime's
@@ -78,7 +84,8 @@ struct Tile {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + BAR_BYTES;
 };
 
-template <int HD>
+// HD: the tile's head dim; HD_OUT <= HD: the columns the output has.
+template <int HD, int HD_OUT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -282,7 +289,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       if (row < S) {
         __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * sos;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < HD_OUT / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) = __floats2bfloat162_rn(
               acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
       }
@@ -314,15 +321,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, S, heads, HD) bf16 tensor as a 4-D map (HD, heads, S, B) whose box is
-// one column block of `rows` rows of one head. Strides in elements.
+// A (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B) whose box is
+// one column block of `rows` rows of one head, for the tile of head dim HD
+// >= hd (columns hd..HD-1 read as zeros). Strides in elements.
 template <int HD>
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+bool make_map(CUtensorMap* map, const void* base, int hd, int B, int S, int heads,
               int64_t sb, int64_t ss, int64_t sh, int rows) {
   using T = Tile<HD>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
@@ -336,7 +344,7 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HD_OUT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
                    int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                    int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
@@ -344,11 +352,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    cudaStream_t stream) {
   using T = Tile<HD>;
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD>(&tq, q, B, S, H, sqb, sqs, sqh, kBlockQ) ||
-      !make_map<HD>(&tk, k, B, S, KV, skb, sks, skh, T::BK) ||
-      !make_map<HD>(&tv, v, B, S, KV, svb, svs, svh, T::BK))
+  if (!make_map<HD>(&tq, q, HD_OUT, B, S, H, sqb, sqs, sqh, kBlockQ) ||
+      !make_map<HD>(&tk, k, HD_OUT, B, S, KV, skb, sks, skh, T::BK) ||
+      !make_map<HD>(&tv, v, HD_OUT, B, S, KV, svb, svs, svh, T::BK))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_sm90<HD>;
+  auto kern = flash_fwd_sm90<HD, HD_OUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
@@ -358,8 +366,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-// The head dims the kernel is built for.
-#define REPRO_FA_HEAD_DIMS(X) X(32) X(64) X(128) X(256)
+// The head dims the kernel is built for, each with the head dim of its tile.
+#define REPRO_FA_HEAD_DIMS(X) X(32, 32) X(64, 64) X(112, 128) X(128, 128) X(256, 256)
 
 }  // namespace
 
@@ -373,10 +381,10 @@ extern "C" int repro_flash_attention_sm90_fwd(
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_FA_CASE(HD_)                                                             \
-  case HD_:                                                                            \
-    return (int)launch<HD_>(q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks, skh, svb, \
-                            svs, svh, sob, sos, soh, scale, causal, st);
+#define REPRO_FA_CASE(HD_, TILE_)                                                    \
+  case HD_:                                                                          \
+    return (int)launch<TILE_, HD_>(q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
+                                   skh, svb, svs, svh, sob, sos, soh, scale, causal, st);
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)
     default:
@@ -388,9 +396,9 @@ extern "C" int repro_flash_attention_sm90_fwd(
 // Bytes of dynamic shared memory a block takes at head dim `hd` (0 for a
 // head dim the kernel is not built for).
 extern "C" int repro_flash_attention_sm90_smem_bytes(int hd) {
-#define REPRO_FA_SMEM(HD_) \
-  case HD_:                \
-    return Tile<HD_>::SMEM;
+#define REPRO_FA_SMEM(HD_, TILE_) \
+  case HD_:                       \
+    return Tile<TILE_>::SMEM;
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_SMEM)
     default:

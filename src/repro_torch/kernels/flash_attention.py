@@ -32,7 +32,7 @@ from . import build
 
 NEG_INF = -1e30
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (32, 64, 112, 128, 256)
 TMA_ALIGN = 16          # bytes: TMA's base-address and stride granule
 TMA_MAX_STRIDE = 2**40  # bytes
 

@@ -1,12 +1,21 @@
 """Turn the JAX package's parameter tree into the port's model.
 
 The tree comes as numpy arrays (``jax.tree.map(np.asarray, params)``), so
-this module needs neither JAX nor ``repro``. The JAX dense family stacks
-its layers for ``lax.scan``: ``blocks/p{i}`` holds, along axis 0, the
-layers at pattern position ``i`` of every repetition ``g``, i.e. layer
-``g*P + i``; the ``n_layers % P`` remainder layers follow under
-``tail/p{i}`` as layer ``reps*P + i``. The port keeps the JAX
-``(d_in, d_out)`` layout, so no weight is transposed.
+this module needs neither JAX nor ``repro``. The JAX families stack their
+layers for ``lax.scan``; ``registry.layer_groups`` says where each port
+layer sits in the JAX tree:
+
+- dense, vlm, moe and hybrid: ``blocks/p{i}`` holds, along axis 0, the
+  layers at pattern position ``i`` of every repetition ``g``, i.e. layer
+  ``g*P + i``; the ``n_layers % P`` remainder layers follow under
+  ``tail/p{i}`` as layer ``reps*P + i`` (hybrid's tail layers carry
+  their role's leaves);
+- ssm: ``blocks`` stacks all layers, with no ``p{i}`` level;
+- audio: ``enc_blocks`` and ``dec_blocks`` stack the encoder's and the
+  decoder's layers.
+
+The port keeps the JAX ``(d_in, d_out)`` layout, so no weight is
+transposed.
 """
 from __future__ import annotations
 
@@ -27,22 +36,24 @@ def _flat(tree, prefix=""):
 
 def state_from_jax(params: dict, cfg: ModelConfig) -> dict:
     """The JAX tree as a flat {port parameter name: numpy array} dict."""
-    P = len(cfg.pattern)
-    reps, tail = divmod(cfg.n_layers, P)
-    state = {}
-    for name, arr in params.items():
-        if name not in ("blocks", "tail"):
-            state[name] = arr
-    for i in range(P):
-        for path, arr in _flat(params["blocks"][f"p{i}"]):
-            if arr.shape[0] != reps:
-                raise ValueError(f"blocks/p{i}/{path}: {arr.shape[0]} "
-                                 f"stacked layers, the config has {reps}")
-            for g in range(reps):
-                state[f"blocks.{g * P + i}.{path}"] = arr[g]
-    for i in range(tail):
-        for path, arr in _flat(params["tail"][f"p{i}"]):
-            state[f"blocks.{reps * P + i}.{path}"] = arr
+    groups = registry.layer_groups(cfg)
+    stacked_keys = {path[0] for _, path, _ in groups}
+    state = dict(_flat({k: v for k, v in params.items()
+                        if k not in stacked_keys}))
+    for name, path, layers in groups:
+        node = params
+        for key in path:
+            node = node[key]
+        for leaf, arr in _flat(node):
+            if isinstance(layers, int):
+                state[f"{name}.{layers}.{leaf}"] = arr
+                continue
+            if arr.shape[0] != len(layers):
+                raise ValueError(f"{'/'.join(path)}/{leaf}: {arr.shape[0]} "
+                                 f"stacked layers, the config has "
+                                 f"{len(layers)}")
+            for g, layer in enumerate(layers):
+                state[f"{name}.{layer}.{leaf}"] = arr[g]
     return state
 
 

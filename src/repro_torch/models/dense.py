@@ -1,12 +1,14 @@
-"""Dense decoder-only transformer family.
+"""Dense decoder-only transformer family (``dense`` and ``vlm``).
 
-Covers yi-9b (llama arch), gemma3 (5:1 local:global attention pattern) and
-the paper's GPT. The model is an ``nn.Module`` with one submodule per layer
-(``blocks[l]``); layer ``l`` plays the pattern role ``pattern[l % P]``.
-This is the JAX package's layer order: its scanned stack holds layer
-``g*P + i`` at ``blocks/p{i}[g]`` and the remainder layers under ``tail``
-(see ``convert.py``). Per-layer KV caches are ring buffers for "local"
-layers and linear for "global" ones, which keeps decode memory at the
+Covers gemma3-27b / gemma3-12b (5:1 local:global attention pattern),
+yi-9b (llama arch), command-r-35b (no-bias GQA), qwen2-vl-2b (M-RoPE and a
+stubbed vision frontend whose patch embeddings go through ``vision_proj``)
+and the paper's GPT. The model has one submodule per layer (``blocks[l]``);
+layer ``l`` plays the pattern role ``pattern[l % P]``. This is the JAX
+package's layer order: its scanned stack holds layer ``g*P + i`` at
+``blocks/p{i}[g]`` and the remainder layers under ``tail`` (see
+``convert.py``). Per-layer KV caches are ring buffers for "local" layers
+and linear for "global" ones, which keeps decode memory at the
 architecture's true footprint.
 """
 from __future__ import annotations
@@ -34,6 +36,9 @@ def model_spec(cfg: ModelConfig) -> dict:
     spec = dict(L.embed_spec(cfg))
     spec["blocks"] = [block_spec(cfg) for _ in range(cfg.n_layers)]
     spec["final_norm"] = L.norm_spec(cfg.d_model)
+    if cfg.vision_tokens:
+        spec["vision_proj"] = L.Leaf((cfg.d_model, cfg.d_model),
+                                     ("embed", "embed_fsdp"))
     return spec
 
 
@@ -45,44 +50,53 @@ def _role_window(cfg, role):
     return cfg.window if role == "local" else 0
 
 
-class DenseLM(L.Params):
-    """The dense decoder: ``embed``, ``blocks[0..n_layers)``, ``final_norm``
-    and (untied) ``unembed``. Weights are allocated uninitialised; build it
-    through ``registry.init_params`` or ``convert.from_jax``."""
-
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__(model_spec(cfg), cfg.torch_dtype, device)
-        self.cfg = cfg
-
-    def forward(self, tokens):
-        return forward(self, tokens)
-
-
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, cfg, x, angles, role):
-    h = L.attention(p.attn, cfg, L.rmsnorm(x, p.pre_attn, cfg.norm_eps),
-                    window=_role_window(cfg, role), angles=angles)
+def _apply_block(p, cfg, x, positions, angles, role):
+    h, kv = L.attention(p.attn, cfg, L.rmsnorm(x, p.pre_attn, cfg.norm_eps),
+                        positions, causal=True,
+                        window=_role_window(cfg, role), angles=angles)
     x = x + h
-    return x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    return x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps)), kv
 
 
-def forward(model: DenseLM, tokens):
-    """tokens: (B, S) int at positions 0..S-1 -> logits (B, S, vocab)."""
+def forward(model, tokens, positions=None, patch_embeds=None,
+            collect_kv=False, return_hidden=False):
+    """tokens: (B, S_text); patch_embeds: (B, V_tok, D) for the VLM family,
+    put in front of the text; positions: (S,) over the whole sequence, None
+    for 0..S-1. Returns (logits, or the final normed hidden state with
+    ``return_hidden``; each layer's (k, v) with ``collect_kv``, else
+    None)."""
     cfg = model.cfg
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = L.embed(model, cfg, tokens)
-    pos = torch.arange(S, device=tokens.device)
-    angles = L.rope_angles(pos[None].expand(B, S), cfg.hd, cfg.rope_theta)
+    if cfg.vision_tokens and patch_embeds is not None:
+        pe = patch_embeds.to(cfg.torch_dtype) @ model.vision_proj
+        x = torch.cat([pe, x], dim=1)
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device) if positions is None \
+        else positions
+    if cfg.mrope:
+        angles = L.rope_angles(pos[None, :, None].expand(B, S, 3), cfg.hd,
+                               cfg.rope_theta, cfg.mrope_sections)
+    else:
+        angles = L.rope_angles(pos[None].expand(B, S), cfg.hd,
+                               cfg.rope_theta)
+    kvs = []
     for layer, blk in enumerate(model.blocks):
-        x = _apply_block(blk, cfg, x, angles, layer_role(cfg, layer))
+        x, kv = _apply_block(blk, cfg, x, positions, angles,
+                             layer_role(cfg, layer))
+        kvs.append(kv)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    kvs = kvs if collect_kv else None
+    if return_hidden:
+        return x, kvs
     logits = L.unembed(model, cfg, x)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / 30.0) * 30.0
-    return logits
+    return logits, kvs
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +127,10 @@ def _decode_block(p, cfg, x, ck, cv, pos, role):
     return x, ck, cv
 
 
-def decode_step(model: DenseLM, cache: list, token, pos: int):
+def decode_step(model, cache: list, token, pos: int):
     """token: (B, 1) int; pos: int. Returns (logits (B, 1, vocab), cache);
-    the caches are updated in place."""
+    the caches are updated in place. As in the JAX package, decode applies
+    no final-logit softcap and plain (not M-) RoPE."""
     cfg = model.cfg
     x = L.embed(model, cfg, token)
     new_cache = []

@@ -1,19 +1,21 @@
 """Shared model building blocks (PyTorch, config-driven).
 
-Parameters are built from *leaf specs* — one source of truth giving shape
-and init scale — so random init, the JAX-weight converter and the parameter
-count all derive from the same structure. Weights keep the JAX package's
-``(d_in, d_out)`` layout and are applied as ``x @ W``.
+Parameters are built from *leaf specs* — one source of truth giving shape,
+logical sharding axes and init scale — so random init, the JAX-weight
+converter, the parameter count and the logical-axes tree all derive from
+the same structure. Weights keep the JAX package's ``(d_in, d_out)`` layout
+and are applied as ``x @ W``.
 
 RMSNorm always goes through the RMSNorm kernel's dispatch
-(``kernels.ops.rmsnorm``); prefill attention goes through the
-flash-attention kernel's dispatch where the kernel's semantics hold (see
-``attention``). On a CPU tensor both dispatch to the plain version.
+(``kernels.ops.rmsnorm``); attention goes through the flash-attention
+kernel's dispatch where the kernel's semantics hold (see ``attention``).
+On a CPU tensor both dispatch to the plain version.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +34,9 @@ NEG_INF = -1e30
 @dataclass(frozen=True)
 class Leaf:
     shape: tuple
+    logical: tuple
     scale: float = 1.0          # stddev multiplier (fan-in scaling applied)
+    dtype: Optional[str] = None
 
 
 class Params(nn.Module):
@@ -46,8 +50,9 @@ class Params(nn.Module):
         for name, item in spec.items():
             if isinstance(item, Leaf):
                 self.leaves[name] = item
+                dt = getattr(torch, item.dtype) if item.dtype else dtype
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(item.shape, dtype=dtype, device=device),
+                    torch.empty(item.shape, dtype=dt, device=device),
                     requires_grad=False))
             elif isinstance(item, dict):
                 self.add_module(name, Params(item, dtype, device))
@@ -56,14 +61,41 @@ class Params(nn.Module):
                     Params(s, dtype, device) for s in item))
 
 
+class Model(Params):
+    """A family's model: the parameters of ``spec`` and the config. Weights
+    are allocated uninitialised; build it through ``registry.init_params``
+    or ``convert.from_jax``."""
+
+    def __init__(self, spec: dict, cfg: ModelConfig, device):
+        super().__init__(spec, cfg.torch_dtype, device)
+        self.cfg = cfg
+
+
+# A leaf of more elements than this is drawn in slices along its leading
+# axis, so that its float32 draw never takes more than 512 MiB beside it
+# (one kimi-k2 expert leaf is 5.6e9 elements: 22.5 GB in float32).
+DRAW_ELEMENTS = 2**27
+
+
 def init_leaf_(t: torch.Tensor, lf: Leaf, generator: torch.Generator):
-    fan_in = lf.shape[-2] if len(lf.shape) >= 2 else lf.shape[-1]
+    """Zeros for scale 0, ones for scale -1 (norm-like leaves), else a
+    normal draw with std = scale / sqrt(fan_in), as the JAX package's
+    ``init_tree``; the bits come from ``generator``, not ``jax.random``."""
     if lf.scale == 0.0:
         t.zero_()
-    else:
-        std = lf.scale / math.sqrt(max(fan_in, 1))
-        t.copy_(torch.randn(lf.shape, generator=generator, device=t.device,
-                            dtype=torch.float32) * std)
+        return
+    if lf.scale == -1.0:
+        t.fill_(1.0)
+        return
+    fan_in = lf.shape[-2] if len(lf.shape) >= 2 else lf.shape[-1]
+    std = lf.scale / math.sqrt(max(fan_in, 1))
+    row = math.prod(lf.shape[1:])
+    step = max(1, DRAW_ELEMENTS // max(row, 1)) if t.numel() > DRAW_ELEMENTS \
+        else lf.shape[0]
+    for i in range(0, lf.shape[0], step):
+        part = t[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=t.device, dtype=torch.float32) * std)
 
 
 @torch.no_grad()
@@ -85,20 +117,32 @@ def spec_leaves(spec):
             yield from spec_leaves(item)
 
 
+def logical_tree(spec, stacked: bool = False):
+    """The spec's logical axes as a nested dict (``stacked``: each behind a
+    ``"layers"`` axis, as the JAX package stacks a layer group's leaves)."""
+    return {k: ((("layers",) if stacked else ()) + v.logical
+                if isinstance(v, Leaf) else logical_tree(v, stacked))
+            for k, v in spec.items()}
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps):
+    # float32 activations over bf16 weights (mamba2's out_norm in prefill):
+    # the scale is widened, exactly, as the JAX package's astype(f32) does
+    if scale.dtype != x.dtype:
+        scale = scale.to(x.dtype)
     return ops.rmsnorm(x, scale, eps)
 
 
 def norm_spec(d: int) -> Leaf:
-    return Leaf((d,), scale=0.0)
+    return Leaf((d,), ("embed",), scale=0.0)
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (incl. M-RoPE for the VLM backbone)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(hd: int, theta: float, device=None):
@@ -106,10 +150,24 @@ def rope_freqs(hd: int, theta: float, device=None):
                                          device=device) / (hd // 2)))
 
 
-def rope_angles(positions, hd: int, theta: float):
-    """positions: (..., S) int -> (..., S, hd//2)."""
-    return positions[..., None].float() * rope_freqs(hd, theta,
-                                                     positions.device)
+def rope_angles(positions, hd: int, theta: float, mrope_sections=None):
+    """positions: (..., S) int or (..., S, 3) for M-RoPE -> (..., S, hd//2).
+
+    M-RoPE (Qwen2-VL): the frequency bands are cut into (t, h, w) sections,
+    each rotated by its own position stream."""
+    freqs = rope_freqs(hd, theta, positions.device)
+    if mrope_sections is None:
+        return positions[..., None].float() * freqs
+    if sum(mrope_sections) != hd // 2:
+        raise ValueError(f"mrope sections {mrope_sections} do not sum to "
+                         f"{hd // 2}")
+    parts = []
+    off = 0
+    for i, s in enumerate(mrope_sections):
+        parts.append(positions[..., i].float()[..., None]
+                     * freqs[off:off + s])
+        off += s
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x, angles):
@@ -123,21 +181,21 @@ def apply_rope(x, angles):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, optional sliding window / softcap)
+# Attention (GQA, optional sliding window / bidirectional / softcap)
 # ---------------------------------------------------------------------------
 
 def attn_spec(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     spec = {
-        "wq": Leaf((d, h * hd)),
-        "wk": Leaf((d, kv * hd)),
-        "wv": Leaf((d, kv * hd)),
-        "wo": Leaf((h * hd, d)),
+        "wq": Leaf((d, h * hd), ("embed_fsdp", "heads")),
+        "wk": Leaf((d, kv * hd), ("embed_fsdp", "kv_heads")),
+        "wv": Leaf((d, kv * hd), ("embed_fsdp", "kv_heads")),
+        "wo": Leaf((h * hd, d), ("heads", "embed_fsdp")),
     }
     if cfg.use_bias:
-        spec["bq"] = Leaf((h * hd,), scale=0.0)
-        spec["bv"] = Leaf((kv * hd,), scale=0.0)
-        spec["bo"] = Leaf((d,), scale=0.0)
+        spec["bq"] = Leaf((h * hd,), ("heads",), scale=0.0)
+        spec["bv"] = Leaf((kv * hd,), ("kv_heads",), scale=0.0)
+        spec["bo"] = Leaf((d,), ("embed",), scale=0.0)
     return spec
 
 
@@ -198,46 +256,63 @@ def gqa_attend_chunked(q, k, v, q_pos, k_pos, *, causal, window,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def attention(p, cfg: ModelConfig, x, *, window=0, angles=None):
-    """Full-sequence causal self-attention over positions 0..S-1
-    (prefill).
+def plain_attention(q, k, v, q_pos, k_pos, *, causal, window, softcap):
+    """The JAX package's XLA attention: one masked pass up to
+    ``CHUNK_THRESHOLD`` query rows, q blocks above it."""
+    if q.shape[1] > CHUNK_THRESHOLD:
+        return gqa_attend_chunked(q, k, v, q_pos, k_pos, causal=causal,
+                                  window=window, softcap=softcap)
+    m = _mask(q_pos, k_pos, causal, window)[None, None]
+    return gqa_attend(q, k, v, m, softcap)
 
-    With no window and no softcap, attention goes to the flash-attention
-    kernel, at any S. Every other case keeps the plain path, as the JAX
-    package keeps XLA."""
+
+def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
+              window=0, kv_override=None, angles=None):
+    """Full-sequence attention (prefill). ``positions`` None means
+    0..S-1. Returns (y, (k, v)).
+
+    Routing: the flash-attention kernel computes exactly softmax(q k^T
+    hd^-0.5) v over keys 0..S-1 of the same sequence, causal or not. So a
+    layer goes to it when it has no window, no softcap, no ``kv_override``
+    (cross-attention: other keys, Sk != S) and default positions; every
+    other layer keeps the plain path, as the JAX package keeps XLA."""
     B, S, D = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p.wq).reshape(B, S, h, hd)
     if cfg.use_bias:
         q = q + p.bq.reshape(1, 1, h, hd)
-    k = (x @ p.wk).reshape(B, S, kv, hd)
-    v = (x @ p.wv).reshape(B, S, kv, hd)
+    ksrc = x if kv_override is None else kv_override
+    Sk = ksrc.shape[1]
+    k = (ksrc @ p.wk).reshape(B, Sk, kv, hd)
+    v = (ksrc @ p.wv).reshape(B, Sk, kv, hd)
     if cfg.use_bias:
         v = v + p.bv.reshape(1, 1, kv, hd)
     if angles is not None:
         q = apply_rope(q, angles)
-        k = apply_rope(k, angles)
-    if not window and not cfg.logit_softcap:
-        y = ops.flash_attention(q, k, v, causal=True).reshape(B, S, h * hd)
+        if kv_override is None:
+            k = apply_rope(k, angles)
+    if not window and not cfg.logit_softcap and kv_override is None \
+            and positions is None:
+        y = ops.flash_attention(q, k, v, causal=causal).reshape(B, S, h * hd)
     else:
-        positions = torch.arange(S, device=x.device)
-        if S > CHUNK_THRESHOLD:
-            y = gqa_attend_chunked(q, k, v, positions, positions,
-                                   causal=True, window=window,
-                                   softcap=cfg.logit_softcap)
-        else:
-            m = _mask(positions, positions, True, window)[None, None]
-            y = gqa_attend(q, k, v, m, cfg.logit_softcap)
+        q_pos = torch.arange(S, device=x.device) if positions is None \
+            else positions
+        k_pos = q_pos if kv_override is None \
+            else torch.arange(Sk, device=x.device)
+        y = plain_attention(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, softcap=cfg.logit_softcap)
     y = y @ p.wo
     if cfg.use_bias:
         y = y + p.bo
-    return y
+    return y, (k, v)
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
-                     window=0):
+                     window=0, rope=True):
     """Single-token decode. cache_{k,v}: (B, C, KV, hd). ``window`` selects
     ring-buffer semantics (C == window) vs linear cache (C == max seq).
+    ``rope=False`` for families whose prefill attention runs unrotated
+    (whisper's decoder self-attention).
 
     Unlike the JAX package, the new K/V row is written into the caches in
     place (the returned caches are the same tensors), which saves a copy of
@@ -253,10 +328,11 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     v_new = (x @ p.wv).reshape(B, 1, kv, hd)
     if cfg.use_bias:
         v_new = v_new + p.bv.reshape(1, 1, kv, hd)
-    ang = rope_angles(torch.full((B, 1), pos, device=x.device), hd,
-                      cfg.rope_theta)
-    q = apply_rope(q, ang)
-    k_new = apply_rope(k_new, ang)
+    if rope:
+        ang = rope_angles(torch.full((B, 1), pos, device=x.device), hd,
+                          cfg.rope_theta)
+        q = apply_rope(q, ang)
+        k_new = apply_rope(k_new, ang)
     slot = pos % C if window > 0 else pos  # ring buffer vs linear cache
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]
@@ -280,11 +356,18 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
 def mlp_spec(cfg: ModelConfig, geglu: bool = True) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if geglu:
-        return {"wg": Leaf((d, f)), "wu": Leaf((d, f)), "wd": Leaf((f, d))}
-    spec = {"w1": Leaf((d, f)), "w2": Leaf((f, d))}
+        return {
+            "wg": Leaf((d, f), ("embed_fsdp", "ff")),
+            "wu": Leaf((d, f), ("embed_fsdp", "ff")),
+            "wd": Leaf((f, d), ("ff", "embed_fsdp")),
+        }
+    spec = {
+        "w1": Leaf((d, f), ("embed_fsdp", "ff")),
+        "w2": Leaf((f, d), ("ff", "embed_fsdp")),
+    }
     if cfg.use_bias:
-        spec["b1"] = Leaf((f,), scale=0.0)
-        spec["b2"] = Leaf((d,), scale=0.0)
+        spec["b1"] = Leaf((f,), ("ff",), scale=0.0)
+        spec["b2"] = Leaf((d,), ("embed",), scale=0.0)
     return spec
 
 
@@ -306,9 +389,10 @@ def mlp(p, x):
 # ---------------------------------------------------------------------------
 
 def embed_spec(cfg: ModelConfig) -> dict:
-    spec = {"embed": Leaf((cfg.vocab, cfg.d_model))}
+    spec = {"embed": Leaf((cfg.vocab, cfg.d_model), ("vocab", "embed_fsdp"))}
     if not cfg.tie_embeddings:
-        spec["unembed"] = Leaf((cfg.d_model, cfg.vocab))
+        spec["unembed"] = Leaf((cfg.d_model, cfg.vocab),
+                               ("embed_fsdp", "vocab"))
     return spec
 
 

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models import registry
+from ..models import encdec, registry
 
 
 @torch.no_grad()
@@ -14,11 +14,17 @@ def prefill_logits(model, batch: dict):
 
 
 @torch.no_grad()
-def sequential_prefill(model, tokens, max_seq: int):
+def sequential_prefill(model, tokens, max_seq: int, frames=None):
     """Build a KV cache by running decode_step over the prompt, one position
-    at a time. Returns (cache, logits (B, S, vocab))."""
+    at a time. Returns (cache, logits (B, S, vocab)).
+
+    ``frames`` (encoder-decoder only): the encoder's input; the per-layer
+    cross K/V is computed into the cache first, as decode_step expects."""
     B, S = tokens.shape
     cache = registry.init_cache(model, B, max_seq)
+    if frames is not None:
+        cache["cross"] = encdec.build_cross_cache(
+            model, encdec.encode(model, frames))
     logits = []
     for i in range(S):
         lg, cache = registry.decode_step(model, cache, tokens[:, i:i + 1], i)

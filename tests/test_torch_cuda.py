@@ -147,7 +147,8 @@ def _launches(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,KV,hd", [(1, 70, 4, 2, 128), (2, 256, 8, 8, 64),
-                                         (1, 130, 4, 1, 32), (1, 96, 2, 1, 256)])
+                                         (1, 130, 4, 1, 32), (1, 96, 2, 1, 256),
+                                         (1, 150, 8, 1, 112)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, causal, B, S, H, KV,
                                     hd):
     q, k, v = _qkv(cuda_device, B, S, H, KV, hd, dtype)
@@ -160,7 +161,7 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, causal, B, S, H, KV,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 300])
 def test_flash_bf16_ragged_lengths(cuda_device, S, hd, causal):
     """No S divides the tiles (128 query rows, 128 or 64 keys)."""
@@ -172,7 +173,7 @@ def test_flash_bf16_ragged_lengths(cuda_device, S, hd, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_flash_bf16_gqa_groups(cuda_device, group, hd, causal):
     q, k, v = _qkv(cuda_device, 1, 200, 8, 8 // group, hd, torch.bfloat16)
@@ -239,19 +240,32 @@ def test_flash_launch_counters_per_route(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-12b", "mixtral-8x7b",
+                                  "kimi-k2-1t-a32b", "mamba2-1.3b",
+                                  "recurrentgemma-2b", "qwen2-vl-2b",
+                                  "whisper-medium"])
 def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
     """Same weights, fp32: kernels on the card vs plain versions on the CPU,
-    at a ragged S=40."""
+    at a ragged S=40 (mamba2: 40 is a multiple of its reduced chunk 8); vlm
+    with patch embeddings, audio with frames."""
     cfg = registry.load_config(arch).reduced()
     cpu = registry.init_params(cfg, seed=0, device="cpu")
     gpu = copy.deepcopy(cpu).to(cuda_device)
-    toks = torch.randint(0, cfg.vocab, (2, 40),
-                         generator=torch.Generator().manual_seed(1))
-    want = serve.prefill_logits(cpu, {"tokens": toks})
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=g)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(2, cfg.vision_tokens, cfg.d_model,
+                                            generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, cfg.encoder_frames, cfg.d_model,
+                                      generator=g)
+    want = serve.prefill_logits(cpu, batch)
     n0 = trn.rmsnorm.launches
-    got = serve.prefill_logits(gpu, {"tokens": toks.to(cuda_device)}).cpu()
-    assert trn.rmsnorm.launches == n0 + 2 * cfg.n_layers + 1
+    got = serve.prefill_logits(
+        gpu, {k: v.to(cuda_device) for k, v in batch.items()}).cpu()
+    norms = 3 * cfg.n_layers + 2 * cfg.encoder_layers + 2 \
+        if cfg.family == "audio" else 2 * cfg.n_layers + 1
+    assert trn.rmsnorm.launches == n0 + norms
     # fp32 both sides (TF32 is off by default); only sum orders differ
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 

@@ -225,21 +225,45 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
         convert.from_jax({}, cfg)
 
 
-def test_explicit_positions_are_refused():
-    model = treg.init_params(treg.load_config("yi-9b").reduced(), device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="positions"):
-        tserve.prefill_logits(model, {"tokens": toks,
-                                      "positions": torch.arange(4)})
+def test_explicit_positions_take_rope_and_the_plain_path(monkeypatch):
+    """Positions 3, 5, 7, ...: RoPE rotates by them (a stride of 2 doubles
+    every relative distance, which a shift alone would not change) and the
+    mask reads them, so the logits are JAX's with the same positions, and no
+    layer reaches the attention kernel (it computes positions 0..S-1
+    only)."""
+    p = Pair("yi-9b")
+    pos = 3 + 2 * np.arange(S)
+    want = jserve.prefill_logits(p.jparams, p.jcfg,
+                                 {"tokens": p.jtokens,
+                                  "positions": jnp.asarray(pos)})
+    default = tserve.prefill_logits(p.model, {"tokens": p.ttokens})
+    calls = []
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **k: calls.append(1))
+    got = tserve.prefill_logits(p.model, {"tokens": p.ttokens,
+                                          "positions": torch.from_numpy(pos)})
+    assert calls == []
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    assert not torch.allclose(got, default, atol=1e-3)
 
 
-def test_other_families_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.load_config("mixtral-8x7b")
-    moe = ModelConfig(name="m", family="moe", n_layers=2, d_model=64,
+def test_every_family_resolves_and_unknown_ones_raise():
+    module = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+              "hybrid": "hybrid", "audio": "encdec"}
+    for arch in jreg.ARCH_IDS + ["gpt"]:
+        cfg = treg.load_config(arch)
+        assert treg.family_module(cfg).__name__ == \
+            f"repro_torch.models.{module[cfg.family]}", arch
+    moe = treg.init_params(treg.load_config("mixtral-8x7b").reduced(),
+                           device="cpu")
+    assert len(moe.blocks) == moe.cfg.n_layers
+    odd = ModelConfig(name="m", family="retrieval", n_layers=2, d_model=64,
                       n_heads=2, n_kv_heads=2, d_ff=64, vocab=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.init_params(moe, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        treg.init_params(odd, device="cpu")
+    with pytest.raises(ModuleNotFoundError):
+        treg.load_config("llama-7b")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -251,6 +275,12 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or"
         " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(mods) >= 14, mods\n"
+        "for fam in ('dense', 'moe', 'ssm', 'hybrid', 'encdec'):\n"
+        "    assert f'repro_torch.models.{fam}' in mods, fam\n"
+        "for arch in ('command_r_35b', 'gemma3_27b', 'kimi_k2_1t_a32b',"
+        " 'mamba2_1_3b', 'mixtral_8x7b', 'qwen2_vl_2b', 'recurrentgemma_2b',"
+        " 'whisper_medium'):\n"
+        "    assert f'repro_torch.configs.{arch}' in mods, arch\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
