@@ -82,6 +82,21 @@ the chaos variables are set; capture_function on the 11 cases at degree
 2 against run_spec, byte for byte; --fn on the port's example in a
 subprocess (exit 0, and 1 for the buggy variant); and --explain on a
 case bug giving the CPU's failure frontier. It prints each wall time.
+Phase 7 (run after phase 5) drives whole-model and train-step
+verification on the card (repro_torch.modelcheck / gradcheck on cuda):
+check_model for each of the 8 supported models at dp2xtp2, gpt at dp2,
+tp2 and dp4 and mixtral-8x7b at tp2 must certify (gpt@dp2xtp2: 14 blocks, 3 obligations),
+the wrong_spec bug at layer 3 must fail block [4], check_train for dp,
+dp_accum, fsdp and tp_dp_2d at their first degrees and tp_dp_2d at 4x4
+must certify and each of the three gradient bugs must fail exactly
+["w2"]; every clean obligation's certificate is replayed on the card,
+once per distinct obligation (model blocks on inputs at a model's scale,
+rtol = atol = 2e-4, TF32 off), the fires of each task are printed beside BENCH_verify.json's and
+must equal them where it has the task, the path must launch no kernel,
+and gpt@dp2xtp2 on 2 spawned workers must give the in-process stable
+summary byte for byte, each worker tracing on the card and launching
+nothing. One [modelcheck]/[gradcheck] JSON line per task, then the
+phase's wall times.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
@@ -1302,6 +1317,149 @@ def phase5_runtime(inproc, inproc_s, smi, device="cuda"):
     print(f"[runtime] {json.dumps(timings)}")
 
 
+def _fires(reports):
+    return sum(sum(((r.get("stats") or {}).get("lemma_fires") or {})
+                   .values()) for r in reports.values())
+
+
+def phase7_checks(smi, device="cuda"):
+    """Whole-model and train-step verification on the card: check_model
+    for every supported model at dp2xtp2, gpt at every default plan and
+    mixtral-8x7b at tp2,
+    the wrong_spec bug at layer 3, check_train for the four strategies
+    (tp_dp_2d at 2x2 and 4x4) and the three gradient bugs, every clean
+    obligation's certificate replayed, then gpt@dp2xtp2 on two spawned
+    workers against the in-process run. ``device="cpu"`` rehearses it
+    without a card."""
+    from repro_torch.api import degree_token
+    from repro_torch.api.replay import max_rel_excess, replay
+    from repro_torch.gradcheck import (check_train, get_train_strategy,
+                                       list_train_bugs, replay_train)
+    from repro_torch.kernels import ops
+    from repro_torch.modelcheck import check_model, decompose, \
+        supported_models
+    from repro_torch.modelcheck.blocks import replay_inputs
+    from repro_torch.sharding.specs import DEFAULT_PLANS
+    bench = json.loads((ROOT / "BENCH_verify.json").read_text())
+    # TF32 would put float32 products beyond the replay's 2e-4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    # --- the model and train paths: launches from here to the read ---
+    model_tasks = [(m, "dp2xtp2") for m in supported_models()] + \
+        [("gpt", p) for p in DEFAULT_PLANS if p != "dp2xtp2"] + \
+        [("mixtral-8x7b", "tp2")]                 # BENCH's fourth task
+    inproc = None
+    replayed = {}        # canonical key -> worst excess: models share blocks
+    for model, plan in model_tasks:
+        t = time.perf_counter()
+        r = check_model(model, plan, workers=0, device=device)
+        wall_ms = (time.perf_counter() - t) * 1e3
+        check(r.ok and r.verdict == "certificate",
+              f"{model}@{plan}: {r.verdict} (blocks {r.failing_blocks})")
+        if (model, plan) == ("gpt", "dp2xtp2"):
+            check((r.total_blocks, r.unique_obligations) == (14, 3),
+                  f"gpt@dp2xtp2: {r.total_blocks} blocks, "
+                  f"{r.unique_obligations} obligations")
+            inproc = r
+        dec = decompose(model, plan, device=device)
+        t = time.perf_counter()
+        keys = dec.obset.keys_in_order()
+        for key in keys:
+            if key in replayed:       # the same obligation, the same cert
+                continue
+            ob = dec.obset.unique[key]
+            got, want = replay(ob.to_strategy_spec(name=key), device,
+                               inputs=replay_inputs(ob, device=device))
+            check(all(v.device.type == torch.device(device).type
+                      for v in got.values()), f"{key}: the replay left "
+                  f"the {device}")
+            replayed[key] = max_rel_excess(got, want)
+        excess = max(replayed[key] for key in keys)
+        check(excess <= 1.0, f"{model}@{plan}: replay beyond rtol = atol "
+              f"= 2e-4 ({excess})")
+        jax = bench["modelcheck"].get(f"{model}@{plan}", {})
+        fires = _fires(r.reports)
+        if jax:
+            check(fires == jax["lemma_fires"], f"{model}@{plan}: {fires} "
+                  f"fires against BENCH's {jax['lemma_fires']}")
+        print(f"[modelcheck] {json.dumps(dict(
+            task=f'{model}@{plan}', verdict=r.verdict,
+            blocks=r.total_blocks, obligations=r.unique_obligations,
+            lemma_fires=fires, bench_lemma_fires=jax.get('lemma_fires'),
+            wall_ms=wall_ms, infer_ms=r.timing()['infer_s_sum'] * 1e3,
+            replay_ms=(time.perf_counter() - t) * 1e3,
+            replay_excess=excess))}")
+    r = check_model("gpt", "dp2xtp2", bug="wrong_spec", bug_layer=3,
+                    workers=0, device=device)
+    check(r.ok and r.verdict == "refinement_error"
+          and r.failing_blocks == [4],
+          f"wrong_spec@layer3: {r.verdict}, blocks {r.failing_blocks}")
+    print(f"[modelcheck] {json.dumps(dict(
+        task='gpt@dp2xtp2+wrong_spec@layer3', verdict=r.verdict,
+        failing_blocks=r.failing_blocks, wall_ms=r.wall_s * 1e3))}")
+    train_tasks = [(s, get_train_strategy(s).degrees[0], None)
+                   for s in ("dp", "dp_accum", "fsdp", "tp_dp_2d")] + \
+        [("tp_dp_2d", (4, 4), None)] + \
+        [(host, None, bug) for bug, (host, _) in
+         sorted(list_train_bugs().items())]
+    for strategy, degree, bug in train_tasks:
+        r = check_train(strategy, degree=degree, bug=bug, device=device)
+        task = r.task_id()
+        rec = dict(task=task, verdict=r.verdict, wall_ms=r.wall_s * 1e3,
+                   infer_ms=r.timing()["infer_s_sum"] * 1e3)
+        if bug:
+            check(r.ok and r.failing_params == ["w2"],
+                  f"{task}: {r.verdict}, params {r.failing_params}")
+            rec["failing_params"] = r.failing_params
+        else:
+            check(r.ok and r.verdict == "certificate",
+                  f"{task}: {r.verdict} ({r.failing_params})")
+            excess = 0.0
+            t = time.perf_counter()
+            for spec in get_train_strategy(strategy).build(
+                    degree=degree).values():
+                got, want = replay_train(spec, device)
+                excess = max(excess, max_rel_excess(got, want))
+            check(excess <= 1.0, f"{task}: replay beyond rtol = atol = "
+                  f"2e-4 ({excess})")
+            jax = bench["gradcheck"].get(
+                f"train@{strategy}@deg{degree_token(r.degree)}", {})
+            fires = _fires(r.reports)
+            if jax:
+                check(fires == jax["lemma_fires"], f"{task}: {fires} fires "
+                      f"against BENCH's {jax['lemma_fires']}")
+            rec.update(lemma_fires=fires,
+                       bench_lemma_fires=jax.get("lemma_fires"),
+                       replay_ms=(time.perf_counter() - t) * 1e3,
+                       replay_excess=excess)
+        print(f"[gradcheck] {json.dumps(rec)}")
+    counts = ops.launch_counts()
+    # --------------------------------------------------------------------
+    check(not any(counts.values()),
+          f"the model/train paths launched port kernels: {counts}")
+    inproc_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    pooled, tracer = _traced(lambda: check_model(
+        "gpt", "dp2xtp2", workers=2, device=device))
+    pool_s = time.perf_counter() - t
+    check(pooled.workers == 2 and json.dumps(pooled.stable_summary(),
+                                             sort_keys=True)
+          == json.dumps(inproc.stable_summary(), sort_keys=True),
+          "gpt@dp2xtp2 on 2 workers differs from the in-process run")
+    check(not any((rep.get("runtime") or {}).get("degraded_reason")
+                  for rep in pooled.reports.values()),
+          "gpt@dp2xtp2 on 2 workers degraded to in-process")
+    spans = _check_worker_spans(tracer, device, "modelcheck pool")
+    check(len(spans) == 3, f"modelcheck pool: {len(spans)} worker spans")
+    print(f"[phase7] {json.dumps(dict(
+        model_tasks=len(model_tasks) + 1, train_tasks=len(train_tasks),
+        model_obligations_replayed=len(replayed),
+        inproc_s=inproc_s, pool_s=pool_s,
+        phase7_s=time.perf_counter() - t_phase, launches=counts,
+        card=smi))}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1322,6 +1480,7 @@ def main():
     families = phase6_families()
     inproc, inproc_s = phase4_verify()
     phase5_runtime(inproc, inproc_s, smi)
+    phase7_checks(smi)
 
     # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)

@@ -201,37 +201,74 @@ def build_spec(name: str, *, degree: Degree = 2, bug: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------------
-# model, train-step and serving-path tasks: not ported yet
+# model-level tasks (repro_torch.modelcheck)
 # ---------------------------------------------------------------------------
-# The JAX package lists and runs ``model@plan`` (modelcheck),
-# ``train@strategy`` (gradcheck) and ``serve@strategy`` (servecheck) tasks
-# beside the cases. Their subsystems come with later slices of the port.
+# Whole-model verification tasks live beside the strategy registry under
+# ``model@plan`` ids (e.g. ``gpt@dp2xtp2``).  They are resolved lazily so
+# importing ``repro_torch.api`` does not pull the model zoo in.
+
+def list_model_tasks() -> Tuple[str, ...]:
+    """``model@plan`` ids: every decomposable model x default mesh plan."""
+    from ..modelcheck import supported_models
+    from ..sharding.specs import DEFAULT_PLANS
+    return tuple(f"{m}@{p}" for m in supported_models()
+                 for p in DEFAULT_PLANS)
+
+
+def check_model_task(task: str, **kw):
+    """Run one ``model@plan`` whole-model task -> ``ModelReport``.
+
+    Keyword arguments pass through to
+    :func:`repro_torch.modelcheck.check_model` (``bug=``, ``bug_layer=``,
+    ``workers=``, ``engine_opts=``, ``device=``, ...).
+    """
+    model, sep, plan = str(task).partition("@")
+    if not sep or not model or not plan:
+        raise KeyError(f"bad model task `{task}` — expected `model@plan` "
+                       f"like `gpt@dp2xtp2`")
+    from ..modelcheck import check_model
+    return check_model(model, plan, **kw)
+
+
+# ---------------------------------------------------------------------------
+# train-step tasks (repro_torch.gradcheck)
+# ---------------------------------------------------------------------------
+# Training-step verification tasks live beside the case and ``model@plan``
+# registries under ``train@strategy`` ids (e.g. ``train@dp_accum``) —
+# resolved lazily so importing ``repro_torch.api`` does not pull gradcheck
+# in.
+
+def list_train_tasks() -> Tuple[str, ...]:
+    """``train@strategy`` ids: every registered train-step strategy."""
+    from ..gradcheck import list_train_strategies
+    return tuple(f"train@{s}" for s in list_train_strategies())
+
+
+def check_train_task(task: str, **kw):
+    """Run one ``train@strategy`` train-step task -> ``TrainReport``.
+
+    Keyword arguments pass through to
+    :func:`repro_torch.gradcheck.check_train` (``degree=``, ``bug=``,
+    ``workers=``, ``engine_opts=``, ``device=``, ...).
+    """
+    prefix, sep, strategy = str(task).partition("@")
+    if not sep or prefix != "train" or not strategy:
+        raise KeyError(f"bad train task `{task}` — expected "
+                       f"`train@strategy` like `train@dp_accum`")
+    from ..gradcheck import check_train
+    return check_train(strategy, **kw)
+
+
+# ---------------------------------------------------------------------------
+# serving-path tasks: not ported yet
+# ---------------------------------------------------------------------------
+# The JAX package lists and runs ``serve@strategy`` (servecheck) tasks
+# beside the others. Its subsystem comes with a later slice of the port.
 
 def _not_ported(what: str, item: int):
     raise NotImplementedError(
         f"{what} tasks are not ported to repro_torch yet; see ROADMAP.md, "
         f"queue 1, item {item}")
-
-
-def list_model_tasks() -> Tuple[str, ...]:
-    """``model@plan`` ids (ROADMAP queue 1, item 6: not ported yet)."""
-    _not_ported("whole-model (modelcheck)", 6)
-
-
-def check_model_task(task: str, **kw):
-    """Run one ``model@plan`` task (ROADMAP queue 1, item 6: not ported)."""
-    _not_ported("whole-model (modelcheck)", 6)
-
-
-def list_train_tasks() -> Tuple[str, ...]:
-    """``train@strategy`` ids (ROADMAP queue 1, item 7: not ported yet)."""
-    _not_ported("train-step (gradcheck)", 7)
-
-
-def check_train_task(task: str, **kw):
-    """Run one ``train@strategy`` task (ROADMAP queue 1, item 7: not
-    ported)."""
-    _not_ported("train-step (gradcheck)", 7)
 
 
 def list_serve_tasks() -> Tuple[str, ...]:

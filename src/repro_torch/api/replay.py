@@ -10,7 +10,7 @@ for every case).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -48,25 +48,41 @@ def shard_inputs(r_i: dict, inputs: Dict[str, torch.Tensor]) -> dict:
     return env
 
 
-def replay(spec: StrategySpec, device=None) -> tuple:
+def replay(spec: StrategySpec, device=None,
+           inputs: Optional[Dict[str, torch.Tensor]] = None) -> tuple:
     """``(reconstructed, sequential)``: the G_s outputs rebuilt from G_d's
     values through the certificate, and ``spec.seq_fn`` run on the same
     inputs, as ``{G_s output name: tensor}`` on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for). The inputs are standard normal times
-    ``SCALE``, drawn from a generator seeded with ``SEED``. Raises
-    ``RefinementError`` when the task has no certificate."""
+    ``SCALE``, drawn from a generator seeded with ``SEED``, except those
+    given in ``inputs`` (an integer input, such as token ids, has no
+    normal draw and must be given). Raises ``RefinementError`` when the
+    task has no certificate."""
     dev = resolve_device(device)
-    gs, gd, r_i = capture_task(spec, dev)
+    return replay_graphs(spec, *capture_task(spec, dev), dev, inputs)
+
+
+def replay_graphs(spec: StrategySpec, gs, gd, r_i, device,
+                  inputs: Optional[Dict[str, torch.Tensor]] = None) -> tuple:
+    """:func:`replay` on graphs already captured for ``spec`` (G_s, the
+    expanded G_d and R_i), as a capture of another form gives them."""
     cert = check_refinement(gs, gd, r_i)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    values = {n: torch.randn(tuple(shape), generator=g, device=dev,
-                             dtype=dtype) * SCALE
-              for n, (shape, dtype) in zip(spec.input_names, spec.avals)}
+    g = torch.Generator(device=device).manual_seed(SEED)
+    values = {}
+    for n, (shape, dtype) in zip(spec.input_names, spec.avals):
+        if inputs is not None and n in inputs:
+            values[n] = inputs[n].to(device)
+        elif not dtype.is_floating_point:
+            raise ValueError(f"replay draws floating inputs only: give "
+                             f"`{n}` ({dtype}) in inputs=")
+        else:
+            values[n] = torch.randn(tuple(shape), generator=g,
+                                    device=device, dtype=dtype) * SCALE
     env = dict(gd.consts)
     env.update(shard_inputs(r_i, values))
     for name, term in gd.defs:
-        env[name] = eval_term(term, env, dev)
-    got = cert.reconstruct(env, dev)
+        env[name] = eval_term(term, env, device)
+    got = cert.reconstruct(env, device)
     outs = spec.seq_fn(*(values[n] for n in spec.input_names))
     outs = outs if isinstance(outs, (tuple, list)) else (outs,)
     want = dict(zip(gs.outputs, outs))

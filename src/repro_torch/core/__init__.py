@@ -2,6 +2,7 @@
 
 Public API:
     capture, capture_spmd, expand_spmd   — graph capture (make_fx -> Graph)
+    capture_chain                        — a named-block sequence of graphs
     spmd                                 — the SPMD shim cases are written
                                            against (PartitionSpec,
                                            shard_map, collectives)
@@ -15,7 +16,8 @@ Public API:
 """
 from . import spmd, terms
 from .capture import (Graph, CaptureError, SpmdCapture, capture,
-                      capture_spmd, expand_spmd, derive_input_relation)
+                      capture_chain, capture_spmd, expand_spmd,
+                      derive_input_relation)
 from .from_fx import (SUPPORTED_PRIMITIVES, UnsupportedPrimitive,
                       capture_function, capture_spmd_function,
                       normalize_mesh, strict_capture)
@@ -26,7 +28,8 @@ from .profile import CONFIG, OptConfig, Profile, set_optimizations
 from .symbolic import AffExpr, ScalarSolver, NonAffine
 
 __all__ = [
-    "Graph", "CaptureError", "SpmdCapture", "capture", "capture_spmd",
+    "Graph", "CaptureError", "SpmdCapture", "capture", "capture_chain",
+    "capture_spmd",
     "expand_spmd", "derive_input_relation", "spmd", "SUPPORTED_PRIMITIVES",
     "UnsupportedPrimitive", "strict_capture", "capture_function",
     "capture_spmd_function", "normalize_mesh", "EGraph", "Lemma",

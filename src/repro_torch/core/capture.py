@@ -33,10 +33,20 @@ closed-over tensors) are literals, as jaxpr literals are. Graph constants
 stay host numpy arrays, so relation inference matches them exactly
 whatever the device. An aten op outside the table raises
 ``CaptureError``.
+
+Lemma fires follow the def structure, so the graph keeps the jaxpr's:
+products ``make_fx`` decomposed are recomposed before lowering (see "Dot
+recomposition"), an op that only aliases (``clone``, a same-shape
+``expand``) defines nothing, a lower-rank operand is promoted to the
+output's rank by its own ``broadcast`` def, and ``mean`` is a sum, a
+keepdim broadcast and a division, as jnp emits them. A caller's graph
+pass (``fx_pass=``: gradcheck's backward form) runs on the trace before
+it is lowered.
 """
 from __future__ import annotations
 
 import itertools
+import math
 import operator
 import os
 import sys
@@ -145,9 +155,16 @@ class _SourceMode(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def _trace(fn: Callable, args: list):
+def _trace(fn: Callable, args: list, fx_pass: Optional[Callable] = None):
+    """``make_fx`` of ``fn`` with its products recomposed, then
+    ``fx_pass(gm)`` when given (gradcheck's backward form; see
+    ``repro_torch.gradcheck.capture_grad``)."""
     with fx_traceback.preserve_node_meta(), _SourceMode():
-        return make_fx(fn, tracing_mode="real")(*args)
+        gm = make_fx(fn, tracing_mode="real")(*args)
+    _recompose_dots(gm)
+    if fx_pass is not None:
+        fx_pass(gm)
+    return gm
 
 
 def _examples(avals: Sequence, device) -> list:
@@ -171,13 +188,49 @@ def _examples(avals: Sequence, device) -> list:
 
 
 def capture(fn: Callable, avals: Sequence, names: Sequence[str],
-            graph_tag: str = "", device=None) -> Graph:
+            graph_tag: str = "", device=None,
+            fx_pass: Optional[Callable] = None) -> Graph:
     """Capture ``fn(*args)`` into a Graph. ``avals`` are ``(shape, dtype)``
     pairs; the trace runs on tensors of those shapes on ``device``
-    (``cuda`` unless ``"cpu"`` is asked for), made by :func:`_examples`."""
+    (``cuda`` unless ``"cpu"`` is asked for), made by :func:`_examples`.
+    ``fx_pass`` rewrites the trace before it is lowered."""
     dev = resolve_device(device)
-    gm = _trace(fn, _examples(avals, dev))
+    gm = _trace(fn, _examples(avals, dev), fx_pass)
     return _fx_to_graph(gm, list(names), graph_tag)
+
+
+def capture_chain(stages, init_avals, init_names, device=None):
+    """Capture a *named-block sequence* instead of one opaque trace.
+
+    ``stages`` is a list of ``(name, fn, extra_avals, extra_names)``; stage
+    *k* is traced as ``fn(*carry, *extras)`` on ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for), where ``carry`` is the previous stage's
+    output avals (the model activations flowing block to block) and
+    ``extras`` are the stage's own parameters.  Carried tensors are named
+    ``{stage}.out{j}`` and parameters ``{stage}.{param}``, so graph *k+1*'s
+    input names are exactly graph *k*'s output names — the seam contract
+    ``repro_torch.modelcheck`` verifies per block.
+
+    Returns ``(graphs, carry_avals, carry_names)`` where ``graphs`` is the
+    ordered ``[(stage name, Graph)]`` list and the carry — ``(shape,
+    dtype)`` pairs read off the trace's outputs — reflects the final
+    stage's outputs.
+    """
+    dev = resolve_device(device)
+    carry_avals = list(init_avals)
+    carry_names = list(init_names)
+    graphs = []
+    for name, fn, extra_avals, extra_names in stages:
+        avals = carry_avals + list(extra_avals)
+        names = carry_names + [f"{name}.{n}" for n in extra_names]
+        gm = _trace(fn, _examples(avals, dev))
+        g = _fx_to_graph(gm, names, "")
+        out_node = next(n for n in gm.graph.nodes if n.op == "output")
+        leaves = [n.meta["val"] for n in _flat(out_node.args[0])]
+        carry_avals = [(tuple(v.shape), v.dtype) for v in leaves]
+        carry_names = [f"{name}.out{j}" for j in range(len(leaves))]
+        graphs.append((name, g))
+    return graphs, carry_avals, carry_names
 
 
 @dataclass
@@ -192,14 +245,15 @@ class SpmdCapture:
 
 
 def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
-                 avals: Sequence, names: Sequence[str],
-                 device=None) -> SpmdCapture:
+                 avals: Sequence, names: Sequence[str], device=None,
+                 fx_pass: Optional[Callable] = None) -> SpmdCapture:
     """Trace the per-rank ``fn`` (or a ``spmd.shard_map`` wrapper, whose
     mesh and specs must agree) on per-shard tensors of the global
     ``avals`` on ``device`` (``cuda`` unless ``"cpu"`` is asked for; made
     by :func:`_examples`) and lower it to a
     single-rank :class:`Graph` (collectives kept as symbolic
-    ops for ``expand_spmd`` to instantiate)."""
+    ops for ``expand_spmd`` to instantiate). ``fx_pass`` rewrites the
+    trace before it is lowered."""
     dev = resolve_device(device)
     if isinstance(fn, spmd.ShardMap):
         if dict(fn.mesh_axes) != dict(mesh_axes) \
@@ -210,8 +264,10 @@ def capture_spmd(fn: Callable, mesh_axes: dict, in_specs: Sequence,
     local = [(spmd.local_shape(shape, spec, mesh_axes), dtype)
              for (shape, dtype), spec in zip(avals, in_specs)]
     with spmd.mesh(mesh_axes):
-        gm = _trace(fn, _examples(local, dev))
-    g = _fx_to_graph(gm, list(names), "")
+        gm = _trace(fn, _examples(local, dev), fx_pass)
+    # closed-over constants are named as the JAX capture names the
+    # shard_map operands they become: cin0, cin1, ...
+    g = _fx_to_graph(gm, list(names), "", const_prefix="cin")
     return SpmdCapture(g, dict(mesh_axes), list(in_specs), list(names))
 
 
@@ -221,7 +277,7 @@ def _flat(x) -> list:
     return [x]
 
 
-def _fx_to_graph(gm, names, tag) -> Graph:
+def _fx_to_graph(gm, names, tag, const_prefix: str = "const") -> Graph:
     g = Graph([], [], [], {}, {}, {})
     env: dict = {}
     counter = itertools.count()
@@ -243,7 +299,7 @@ def _fx_to_graph(gm, names, tag) -> Graph:
         return g.tensor(nm)
 
     def const(value: np.ndarray) -> Term:
-        nm = f"const{len(g.consts)}{tag}"
+        nm = f"{const_prefix}{len(g.consts)}{tag}"
         g.consts[nm] = value
         declare(nm, value.shape, _dt(value.dtype))
         return g.tensor(nm)
@@ -287,7 +343,9 @@ def _fx_to_graph(gm, names, tag) -> Graph:
                 val = node.meta["val"]
                 assert outs.shape == tuple(val.shape), \
                     f"{tuple(val.shape)} vs {outs.shape} for {op_name(node)}"
-                env[node] = emit(outs)
+                # an op that only aliases (clone, a same-shape expand or
+                # view) defines nothing, as it has no jaxpr eqn
+                env[node] = outs if outs.op == "tensor" else emit(outs)
         elif node.op == "output":
             for out in _flat(node.args[0]):
                 t = env[out]
@@ -297,6 +355,137 @@ def _fx_to_graph(gm, names, tag) -> Graph:
         else:
             raise CaptureError(f"unexpected fx node kind {node.op}")
     return g
+
+
+# ---------------------------------------------------------------------------
+# Dot recomposition
+# ---------------------------------------------------------------------------
+# ``make_fx`` decomposes ``matmul`` on operands of rank > 2 into a flattening
+# view, ``mm``/``bmm`` and a view back (with ``expand``/``clone`` on the
+# way); a jaxpr keeps the product whole as one ``dot_general``, which the
+# JAX capture canonicalizes to one ``matmul`` (lhs of any rank) or one
+# ``bmm`` over every batch dim with its operands' transposes inside the
+# term. Lemma fires follow the def structure, so the port recomposes the
+# product before lowering: the node target below stands for it, lowered
+# to ``matmul`` when its second operand is a matrix and to ``bmm`` when
+# the operands share their batch dims.
+
+def matmul_nd(x, perm_x, w, perm_w):
+    """``x.permute(perm_x) @ w.permute(perm_w)``: ``w`` a matrix, or both
+    of one rank with equal batch dims."""
+    return torch.matmul(x.permute(perm_x), w.permute(perm_w))
+
+
+_VIEWS = {aten.view.default, aten._unsafe_view.default, aten.reshape.default}
+
+
+def _shape_of(node) -> tuple:
+    val = node.meta.get("val") if hasattr(node, "meta") else None
+    return tuple(val.shape) if isinstance(val, torch.Tensor) else None
+
+
+def _through_aliases(node, chain: list):
+    """The node under ``clone``/``alias``/``detach`` and same-shape
+    ``expand``/views, collecting the skipped nodes into ``chain``."""
+    while getattr(node, "op", None) == "call_function" and (
+            node.target in _IDENTITY
+            or (node.target in _VIEWS | {aten.expand.default}
+                and _shape_of(node) == _shape_of(node.args[0]))):
+        chain.append(node)
+        node = node.args[0]
+    return node
+
+
+def _flattened(node, chain: list, lead: int):
+    """The tensor whose leading dims the view ``node`` (seen through
+    aliases) merges into ``lead`` dims, or None."""
+    flat = _through_aliases(node, chain)
+    if getattr(flat, "op", None) != "call_function" \
+            or flat.target not in _VIEWS:
+        return None
+    chain.append(flat)
+    src = _through_aliases(flat.args[0], chain)
+    s_src, s_flat = _shape_of(src), _shape_of(flat)
+    if s_src is None or len(s_src) <= len(s_flat) \
+            or s_src[-(len(s_flat) - lead):] != s_flat[lead:] \
+            or math.prod(s_src[:len(s_src) - len(s_flat) + lead]) \
+            != math.prod(s_flat[:lead]):
+        return None
+    return src
+
+
+def _broadcast_matrix(node, chain: list):
+    """The matrix that ``node`` (seen through aliases) expands over a
+    batch dim, or None."""
+    src = _through_aliases(node, chain)
+    if getattr(src, "op", None) == "call_function" \
+            and src.target is aten.expand.default \
+            and len(_shape_of(src.args[0]) or ()) == 2:
+        chain.append(src)
+        return src.args[0]
+    return None
+
+
+def _recompose_dots(gm) -> None:
+    """Rewrite each decomposed product of ``gm`` as one ``matmul_nd`` node
+    (a permute feeding only a batched product folds into it), erasing the
+    views, aliases and permutes it replaces."""
+    graph = gm.graph
+    for node in list(graph.nodes):
+        if node.op != "call_function" or node.target not in (
+                aten.mm.default, aten.bmm.default):
+            continue
+        users = list(node.users)
+        if len(users) != 1 or users[0].target not in _VIEWS:
+            continue
+        out = users[0]
+        chains = ([], [])
+        folded_permutes = []
+        if node.target is aten.mm.default:
+            x = _flattened(node.args[0], chains[0], 1)
+            if x is None or _shape_of(out) != \
+                    _shape_of(x)[:-1] + _shape_of(node)[-1:]:
+                continue
+            args = (x, tuple(range(len(_shape_of(x)))), node.args[1], (0, 1))
+        elif _broadcast_matrix(node.args[1], chains[1]) is not None:
+            # matmul's other path: the matrix expanded over the batch
+            w = _broadcast_matrix(node.args[1], [])
+            x = _flattened(node.args[0], chains[0], 1)
+            if x is None:
+                chains[0].clear()
+                x = _through_aliases(node.args[0], chains[0])
+            if _shape_of(out) != _shape_of(x)[:-1] + _shape_of(w)[-1:]:
+                continue
+            args = (x, tuple(range(len(_shape_of(x)))), w, (0, 1))
+        else:
+            a = _flattened(node.args[0], chains[0], 1)
+            b = _flattened(node.args[1], chains[1], 1)
+            if a is None or b is None:
+                continue
+            sa, sb = _shape_of(a), _shape_of(b)
+            if len(sa) != len(sb) or sa[:-2] != sb[:-2] \
+                    or _shape_of(out) != sa[:-2] + (sa[-2], sb[-1]):
+                continue
+            args = []
+            for src in (a, b):
+                if src.target is aten.permute.default \
+                        and len(src.users) == 1:
+                    args += [src.args[0],
+                             tuple(p % len(sa) for p in src.args[1])]
+                    folded_permutes.append(src)
+                else:
+                    args += [src, tuple(range(len(sa)))]
+            args = tuple(args)
+        with graph.inserting_before(out):
+            new = graph.call_function(matmul_nd, args)
+        new.meta.update(node.meta)
+        new.meta["val"] = out.meta["val"]
+        out.replace_all_uses_with(new)
+        dead = [out, node] + chains[0] + chains[1] + folded_permutes
+        for n in dead:
+            if not n.users and n.graph is graph:
+                graph.erase_node(n)
+    graph.lint()
 
 
 # ---------------------------------------------------------------------------
@@ -374,14 +563,27 @@ def _lift(t: Term, shape) -> Term:
     return T.broadcast(t, shape, tuple(range(k, len(shape))))
 
 
+def _promote_rank(t: Term, shape, emit) -> Term:
+    """jnp's rank promotion: an operand of lower, non-zero rank is first
+    broadcast to ``(1, ..., 1) + t.shape`` (its own def, as jnp's
+    ``expand_dims`` is its own eqn); ``_lift`` then broadcasts the unit
+    dims."""
+    k = len(shape) - len(t.shape)
+    if k <= 0 or not t.shape:
+        return t
+    return emit(T.broadcast(t, (1,) * k + t.shape,
+                            tuple(range(k, len(shape)))))
+
+
 def _is_num(v) -> bool:
     return isinstance(v, (bool, int, float))
 
 
 def _scalar(v, kind: str) -> Term:
     """A Python scalar operand as a literal of the promoted kind (jax's weak
-    typing: ``x / 2`` on floats divides by ``2.0``)."""
-    return T.lit(float(v) if kind == "f" else int(v))
+    typing: ``x / 2`` on floats divides by ``2.0``), a float rounded to
+    float32 as the jaxpr's literal is (``1e-6`` is 9.99999997e-07)."""
+    return T.lit(float(np.float32(v)) if kind == "f" else int(v))
 
 
 def _operands(read, a, b):
@@ -480,6 +682,7 @@ def _lower(node, read, emit):
         if kw.get("alpha", 1) != 1 or len(a) > 2:
             return None
         x, y = _operands(read, a[0], a[1])
+        x, y = _promote_rank(x, shape, emit), _promote_rank(y, shape, emit)
         return T.ew2(_EW2_MAP[tgt], _lift(x, shape), _lift(y, shape))
     if tgt in (aten.bitwise_and.Tensor, aten.bitwise_or.Tensor) \
             and kind == "b":                    # `&`/`|` on bools
@@ -584,15 +787,17 @@ def _lower(node, read, emit):
         dims = a[1] if len(a) > 1 else kw.get("dim")
         out = T.reduce_(_REDUCE[tgt], x, _reduce_axes(x, dims))
         return T.reshape(out, shape)            # keepdim
-    if tgt is aten.mean.dim:
-        x = read(a[0])
-        if kw.get("dtype") is not None:
+    if tgt is aten.mean.dim:                     # as jnp.mean: a sum, the
+        x = read(a[0])                           # kept dims broadcast back,
+        if kw.get("dtype") is not None:          # then the division
             return None
         axes = _reduce_axes(x, a[1] if len(a) > 1 else None)
-        s = T.reduce_("reduce_sum", x, axes)
+        s = emit(T.reduce_("reduce_sum", x, axes))
+        if s.shape != shape:                     # keepdim
+            s = emit(T.broadcast(s, shape, tuple(
+                i for i in range(len(shape)) if i not in axes)))
         n = int(np.prod([x.shape[i] for i in axes], dtype=np.int64))
-        return T.reshape(T.ew2("div", s, _lift(T.lit(float(n)), s.shape)),
-                         shape)
+        return T.ew2("div", s, _lift(T.lit(float(n)), s.shape))
     if tgt is aten.cumsum.default:
         x = read(a[0])
         return T.cumsum(x, _dim(a[1], len(x.shape)))
@@ -614,8 +819,17 @@ def _lower(node, read, emit):
         if nums[0] != 0 or nums[2] != 1:
             return None
         return T.iota(shape, 0, kind)
+    if tgt is matmul_nd:
+        dot = T.matmul if len(a[3]) == 2 else T.bmm
+        return dot(T.transpose(read(a[0]), tuple(a[1])),
+                   T.transpose(read(a[2]), tuple(a[3])))
     if tgt is aten.embedding.default:
-        return T.gather_rows(read(a[0]), read(a[1]))
+        # as the JAX capture lowers ``take``'s gather: the index gains a
+        # trailing unit dim (its own def) that gather_rows reshapes away
+        idx = read(a[1])
+        col = emit(T.broadcast(idx, idx.shape + (1,),
+                               tuple(range(len(idx.shape)))))
+        return T.gather_rows(read(a[0]), T.reshape(col, idx.shape))
     if op_name(node) in _SPMD:
         return _lower_spmd(node, read, shape)
     return None

@@ -42,10 +42,14 @@ AxisNames = Union[str, Sequence[str]]
 
 class PartitionSpec(tuple):
     """Per-dim sharding of one input: ``None``, an axis name, or a tuple of
-    axis names (major to minor). Missing trailing entries are ``None``."""
+    axis names (major to minor). Missing trailing entries are ``None``; a
+    one-name tuple or list is that name, as in ``jax.sharding.P``."""
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        return super().__new__(cls, (
+            e[0] if isinstance(e, (tuple, list)) and len(e) == 1
+            else tuple(e) if isinstance(e, list) else e
+            for e in entries))
 
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"

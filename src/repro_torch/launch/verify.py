@@ -6,6 +6,23 @@ Single-layer strategy cases (the paper-§6 matrix):
         [--degree 2] [--json] [--list] [--device cuda|cpu] \
         [--timeout S] [--workers N] [--cache [DIR] | --no-cache]
 
+Whole-model verification (the ``repro_torch.modelcheck`` subsystem —
+block-by-block decomposition with obligation dedup):
+
+    python -m repro_torch.launch.verify --model gpt --plan dp2xtp2 \
+        [--inject-bug wrong_spec [--bug-layer 3]] [--workers 4] [--json]
+
+Training-step verification (the ``repro_torch.gradcheck`` subsystem —
+per-parameter gradient obligations, relations transposed from the
+forward specs):
+
+    python -m repro_torch.launch.verify --train dp_accum \
+        [--inject-bug accum_no_rescale] [--degree 2] [--workers 2] [--json]
+
+Both exit 0 on a certificate, 1 when an injected bug is caught and
+localized to its block or parameter, and 2 when a caller mistake or a
+mis-localized bug is reported.
+
 Bring-your-own-function verification (the generic frontend,
 ``repro_torch.core.from_fx`` + ``repro_torch.api.verify_functions``):
 point ``--fn`` at a ``module:callable`` whose callable returns the task,
@@ -20,16 +37,20 @@ without a GPU the run raises rather than falling back to the CPU). Exit
 codes: 0 for a certificate, 1 for a refinement failure or any other
 non-certificate verdict of a case, 2 for a harness problem on the ``--fn``
 path (bad target, capture or engine error). ``--json`` emits the
-``Report`` in the JAX CLI's envelope (``schema_version``, ``kind``,
-``timing``, ``report``, and ``metrics``/``explanation`` only under
-``--metrics``/``--explain``). For matrix runs use the suite runner:
-``python -m repro_torch.api``.
+``Report`` (or the ``ModelReport``/``TrainReport``) in the JAX CLI's
+envelope (``schema_version``, ``kind``, ``timing``, ``report``, and
+``metrics``/``explanation`` only under ``--metrics``/``--explain``);
+``--list`` prints the cases, the ``model@plan`` and ``train@strategy``
+tasks and every bug, each tagged ``[case]``, ``[model]`` or ``[train]``.
+For matrix runs use the suite runner: ``python -m repro_torch.api``.
 
 The case path runs through the shared runtime (``repro_torch.runtime``):
 in this process by default, in one supervised worker process (spawned,
 tracing on the same device, killed if it overruns its budget) under
 ``--timeout`` or ``--workers``; ``--cache`` serves a repeat run from the
-certificate cache.
+certificate cache.  ``--model`` and ``--train`` fan their obligations over
+``--workers`` spawned workers (default: in this process), each budgeted
+``--timeout`` seconds (default 600) from the moment it starts.
 
 Observability:
 
@@ -44,8 +65,8 @@ under ``--json`` — adds a ``metrics`` key to the envelope.  ``--explain``
 prints the proof provenance (the lemma chain of a certificate, the failure
 frontier of a refinement error).  None of them changes certificates.
 
-``--model``, ``--train`` and ``--serve`` belong to subsystems that are not
-ported yet; they raise ``NotImplementedError`` naming their ROADMAP items.
+``--serve`` belongs to a subsystem that is not ported yet; it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -56,8 +77,8 @@ import sys
 
 from ..api import (build_spec, degree_token, get_strategy, list_bugs,
                    list_strategies, parse_degree, task_id)
-from ..api.registry import check_model_task, check_serve_task, \
-    check_train_task
+from ..api.registry import check_serve_task, list_model_tasks, \
+    list_train_tasks
 from ..api.suite import add_cache_flags, cache_from_args
 
 # the --json envelope: {"schema_version", "kind", "timing", "report"}
@@ -67,17 +88,37 @@ JSON_SCHEMA_VERSION = 2
 
 
 def _print_registry():
-    """One line per registered case, then one per bug."""
-    print("registered tasks (kind-tagged; see --case):")
+    """One line per registered task, each tagged by kind — ``[case]``
+    single-layer strategies (``--case``), ``[model]`` whole-model tasks
+    (``--model``/``--plan``), ``[train]`` training-step tasks
+    (``--train``) — then one per bug."""
+    from ..gradcheck import get_train_strategy, list_train_bugs
+    from ..modelcheck.decompose import BUGS as MODEL_BUGS
+
+    print("registered tasks (kind-tagged; see --case / --model / "
+          "--train):")
     for name in list_strategies():
         entry = get_strategy(name)
         bugs = ", ".join(entry.bug_names()) or "-"
         degs = "/".join(degree_token(d) for d in entry.degrees)
         print(f"  [case]  {name:16s} degrees={degs:10s} "
               f"expected={entry.expected:12s} bugs: {bugs}")
+    for task in list_model_tasks():
+        model, _, plan = task.partition("@")
+        print(f"  [model] {task:16s} (--model {model} --plan {plan})")
+    for task in list_train_tasks():
+        entry = get_train_strategy(task.partition("@")[2])
+        bugs = ", ".join(entry.bug_names()) or "-"
+        degs = "/".join(degree_token(d) for d in entry.degrees)
+        print(f"  [train] {task:16s} degrees={degs:10s} "
+              f"params={','.join(entry.params):8s} bugs: {bugs}")
     print("registered bugs (bug -> host, detection):")
     for bug, (host, bspec) in sorted(list_bugs().items()):
         print(f"  [case]  {bug:22s} -> {host:12s} ({bspec.expected})")
+    for bug in MODEL_BUGS:
+        print(f"  [model] {bug:22s} -> --model tasks (refinement_error)")
+    for bug, (host, bspec) in sorted(list_train_bugs().items()):
+        print(f"  [train] {bug:22s} -> train@{host:12s} ({bspec.expected})")
 
 
 def _json_envelope(kind: str, report_json: dict, timing: dict,
@@ -149,6 +190,90 @@ def _case_timing(report) -> dict:
         "infer_s": stats.get("time_s", 0.0),
         "phase_s": dict(stats.get("phase_s") or {}),
     }
+
+
+def _run_model(args, cache) -> int:
+    """The ``--model`` path; returns the exit code."""
+    from ..modelcheck import ModelCheckError, check_model
+    from ..modelcheck.schedule import DEFAULT_TIMEOUT_S
+    try:
+        report = check_model(args.model, args.plan, bug=args.inject_bug,
+                             bug_layer=args.bug_layer, workers=args.workers,
+                             engine_opts=_cli_engine_opts(args),
+                             timeout_s=args.timeout or DEFAULT_TIMEOUT_S,
+                             cache=cache, device=args.device)
+    except (ModelCheckError, ValueError) as e:
+        print(f"[modelcheck] {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(_json_envelope("model", report.to_json(), report.timing(),
+                             metrics=_metrics_snapshot(args),
+                             explain=args.explain))
+    else:
+        print(report.to_markdown())
+        if args.explain:
+            _print_narrative(report.explanation)
+        if report.verdict == "certificate":
+            print("WHOLE-MODEL REFINEMENT HOLDS "
+                  f"({report.unique_obligations} obligations verified for "
+                  f"{report.total_blocks} blocks, "
+                  f"dedup {report.dedup_ratio:.1f}x)")
+        else:
+            print(f"WHOLE-MODEL VERDICT: {report.verdict} — failing "
+                  f"blocks {report.failing_blocks}")
+    # exit codes: 0 clean certificate; 1 expected failure (an injected bug
+    # detected AND localized to its block — report.ok encodes that); 2 a
+    # harness problem (clean run not ok, or a bug run failing in the wrong
+    # block), so CI gates that assert rc==1 catch mis-localization.
+    if args.inject_bug is not None:
+        if not report.ok:
+            print(f"[modelcheck] injected bug NOT correctly localized "
+                  f"(expected block {1 + (report.bug_layer or 0)}, failing "
+                  f"blocks {report.failing_blocks})", file=sys.stderr)
+            return 2
+        return 1
+    return 0 if report.ok else 1
+
+
+def _run_train(args, cache) -> int:
+    """The ``--train`` path; returns the exit code."""
+    from ..gradcheck import check_train
+    from ..gradcheck.schedule import DEFAULT_TIMEOUT_S
+    try:
+        report = check_train(args.train, degree=args.degree,
+                             bug=args.inject_bug, workers=args.workers,
+                             engine_opts=_cli_engine_opts(args),
+                             timeout_s=args.timeout or DEFAULT_TIMEOUT_S,
+                             cache=cache, device=args.device)
+    except (KeyError, ValueError) as e:
+        print(f"[gradcheck] {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(_json_envelope("train", report.to_json(), report.timing(),
+                             metrics=_metrics_snapshot(args),
+                             explain=args.explain))
+    else:
+        print(report.to_markdown())
+        if args.explain:
+            _print_narrative(report.explanation)
+        if report.verdict == "certificate":
+            print(f"TRAIN-STEP REFINEMENT HOLDS ({len(report.params)} "
+                  f"parameter gradients verified, relations transposed "
+                  f"from the forward specs)")
+        else:
+            print(f"TRAIN-STEP VERDICT: {report.verdict} — failing "
+                  f"parameters {report.failing_params}")
+    # exit codes mirror the model path: 0 clean certificate; 1 expected
+    # failure (injected gradient bug detected AND localized to its
+    # parameter — report.ok encodes that); 2 a harness problem.
+    if args.inject_bug is not None:
+        if not report.ok:
+            print(f"[gradcheck] injected bug NOT correctly localized "
+                  f"(expected parameter {report.bug_param!r}, failing "
+                  f"parameters {report.failing_params})", file=sys.stderr)
+            return 2
+        return 1
+    return 0 if report.ok else 1
 
 
 def _load_fn_task(target: str):
@@ -266,14 +391,18 @@ def _case_report(args, cache) -> dict:
 
 
 def main(argv=None):
+    from ..gradcheck import list_train_bugs, list_train_strategies
+    from ..modelcheck.decompose import BUGS as model_bugs
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default=None, choices=list_strategies(),
-                    help="single-layer strategy case (default: tp_layer)")
+                    help="single-layer strategy case (default: tp_layer "
+                         "unless --model/--train is given)")
     ap.add_argument("--bug", default=None, choices=sorted(list_bugs()),
                     help="inject a bug class (must be hosted by --case)")
-    ap.add_argument("--degree", type=parse_degree, default=2,
+    ap.add_argument("--degree", type=parse_degree, default=None,
                     help="int, or per-mesh-axis like `4x2` for 2D cases "
-                         "(default: 2)")
+                         "(default: 2 for --case, the strategy's first "
+                         "registered degree for --train)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="where the graphs are traced and replayed "
                          "(default: cuda, which must exist)")
@@ -283,21 +412,39 @@ def main(argv=None):
                          "(a dict with fn_seq/fn_dist/mesh/in_specs, avals "
                          "or example_args, and optionally name)")
     ap.add_argument("--model", default=None,
-                    help="whole-model verification (not ported yet)")
+                    help="whole-model verification: a model id like `gpt` "
+                         "(see --list)")
+    ap.add_argument("--plan", default="dp2xtp2",
+                    help="mesh plan for --model, e.g. dp2 / tp2 / dp2xtp2")
     ap.add_argument("--train", default=None,
-                    help="training-step verification (not ported yet)")
+                    choices=list_train_strategies(),
+                    help="training-step verification: a train strategy "
+                         "like `dp_accum` (see --list)")
     ap.add_argument("--serve", default=None,
                     help="serving-path verification (not ported yet)")
+    ap.add_argument("--inject-bug", default=None,
+                    choices=tuple(model_bugs) + tuple(
+                        sorted(list_train_bugs())),
+                    help="inject a whole-model bug into one layer "
+                         "(--model) or a gradient bug into one parameter "
+                         "(--train)")
+    ap.add_argument("--bug-layer", type=int, default=None,
+                    help="layer index for --model --inject-bug "
+                         "(default: middle)")
     ap.add_argument("--workers", type=int, default=None,
-                    help="run the case in a supervised worker process "
-                         "(N >= 1; one task needs one worker)")
+                    help="spawned worker processes: the pool size for "
+                         "--model/--train (default: in this process), or "
+                         "one supervised worker for --case (N >= 1)")
     ap.add_argument("--timeout", type=float, default=None,
                     help="per-task budget in seconds, enforced by the "
-                         "supervised runtime from the moment the case "
-                         "starts on its worker (default: unbudgeted)")
+                         "supervised runtime from the moment a task "
+                         "starts on its worker (default: unbudgeted for "
+                         "--case, 600 s per obligation for "
+                         "--model/--train)")
     add_cache_flags(ap)
     ap.add_argument("--list", action="store_true",
-                    help="print registered cases and bugs and exit")
+                    help="print registered case/model/train tasks and "
+                         "bugs (kind-tagged) and exit")
     ap.add_argument("--json", action="store_true",
                     help="emit the structured report as JSON (with "
                          "schema_version + per-phase timing)")
@@ -367,8 +514,10 @@ def _finish_obs(args, tracer) -> None:
 
 
 def _dispatch(ap, args):
-    """Route the parsed args to the case/fn path (model/train/serve raise:
-    not ported yet)."""
+    """Route the parsed args to the case/model/train/fn path (serve
+    raises: not ported yet)."""
+    from ..gradcheck import list_train_bugs
+    from ..modelcheck.decompose import BUGS as model_bugs
     from ..runtime import resolve_cache
     paths = [flag for flag, v in (("--model", args.model),
                                   ("--train", args.train),
@@ -376,12 +525,36 @@ def _dispatch(ap, args):
                                   ("--fn", args.fn)) if v is not None]
     if len(paths) > 1:
         ap.error("--model, --train, --serve and --fn are separate paths")
+    if args.workers is not None and args.workers < 0:
+        ap.error("--workers takes N >= 0")
     if args.model is not None:
-        return check_model_task(args.model)
+        if args.case is not None or args.bug is not None:
+            ap.error("--model/--plan and --case/--bug are separate paths")
+        if args.inject_bug in list_train_bugs():
+            ap.error(f"--inject-bug {args.inject_bug} is a gradient bug — "
+                     f"it requires --train")
+        rc = _run_model(args, resolve_cache(cache_from_args(args)))
+        if rc:
+            sys.exit(rc)
+        return
     if args.train is not None:
-        return check_train_task(args.train)
+        if args.case is not None or args.bug is not None:
+            ap.error("--train and --case/--bug are separate paths")
+        if args.inject_bug in model_bugs:
+            ap.error(f"--inject-bug {args.inject_bug} is a whole-model "
+                     f"bug — it requires --model")
+        if args.bug_layer is not None:
+            ap.error("--bug-layer applies to --model (gradient bugs "
+                     "localize to a parameter, not a layer)")
+        rc = _run_train(args, resolve_cache(cache_from_args(args)))
+        if rc:
+            sys.exit(rc)
+        return
     if args.serve is not None:
         return check_serve_task(args.serve)
+    if args.inject_bug is not None or args.bug_layer is not None:
+        ap.error("--inject-bug/--bug-layer require --model or --train "
+                 "(the case path takes --bug)")
     if args.fn is not None:
         if args.case is not None or args.bug is not None:
             ap.error("--fn and --case/--bug are separate paths")
@@ -396,6 +569,8 @@ def _dispatch(ap, args):
         ap.error("--workers takes N >= 1 (omit it to run in-process)")
     if args.case is None:
         args.case = "tp_layer"
+    if args.degree is None:
+        args.degree = 2
     from ..api import Report
     d = _case_report(args, resolve_cache(cache_from_args(args)))
     report = Report.from_json(d)

@@ -90,13 +90,18 @@ def aval_token(aval) -> str:
 def engine_fingerprint() -> str:
     """Hash of every source file of this package whose semantics a cached
     certificate depends on: the engine and capture (``core``), the case
-    builders (``dist``), the task model (``api/spec.py``) and the runner
-    (``api/runner.py``).  Any edit invalidates the cache wholesale — the
-    conservative choice; *content* keys handle the common fast path of
-    unchanged code + edited task.  The device is in neither: a
-    certificate is symbolic, the same on the CPU and on the card."""
+    builders (``dist``), the model configs (``models``), the plans
+    (``sharding``), the obligation builders (``modelcheck``,
+    ``gradcheck``, and the JAX package's ``servecheck`` and ``optim``
+    once ported: a missing directory is skipped), the task model
+    (``api/spec.py``) and the runner (``api/runner.py``).  Any edit
+    invalidates the cache wholesale — the conservative choice; *content*
+    keys handle the common fast path of unchanged code + edited task.
+    The device is in neither: a certificate is symbolic, the same on the
+    CPU and on the card."""
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    subdirs = ("core", "dist")
+    subdirs = ("core", "dist", "models", "sharding", "modelcheck",
+               "gradcheck", "servecheck", "optim")
     files = [os.path.join(pkg, "api", "spec.py"),
              os.path.join(pkg, "api", "runner.py")]
     for sub in subdirs:
@@ -129,6 +134,13 @@ def _engine_token(engine_opts: Optional[dict]) -> str:
     if explain_enabled((engine_opts or {}).get("explain")):
         tok += ":xp"
     return tok
+
+
+def obligation_cache_key(canonical: str,
+                         engine_opts: Optional[dict] = None) -> str:
+    """Cache key for a modelcheck obligation (already content-addressed
+    by ``modelcheck.obligations.canonical_key``)."""
+    return f"ob:{canonical}:{_engine_token(engine_opts)}"
 
 
 def strategy_cache_key(spec, engine_opts: Optional[dict] = None) -> str:

@@ -369,3 +369,83 @@ def test_fn_cli_on_the_card(cuda_device):
         else:
             assert rep["verdict"] == "refinement_error"
             assert rep["localization"]["op_name"] == "output-filter"
+
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "BENCH_verify.json")
+
+
+def _fires(reports):
+    return sum(sum(((r.get("stats") or {}).get("lemma_fires") or {})
+                   .values()) for r in reports.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["gpt@dp2", "gpt@dp2xtp2",
+                                  "gemma3-12b@dp2xtp2", "mixtral-8x7b@tp2"])
+def test_check_model_on_the_card(cuda_device, no_tf32, task):
+    """Whole-model checks traced on the card: BENCH_verify.json's fires,
+    and each clean obligation's certificate replayed there."""
+    from repro_torch.modelcheck import check_model, decompose
+    from repro_torch.modelcheck.blocks import replay_inputs
+    model, plan = task.split("@")
+    r = check_model(model, plan, workers=0, device=cuda_device)
+    bench = json.load(open(BENCH))["modelcheck"][task]
+    assert r.ok and r.verdict == "certificate"
+    assert (r.total_blocks, r.unique_obligations, _fires(r.reports)) == \
+        (bench["total_blocks"], bench["unique_obligations"],
+         bench["lemma_fires"])
+    dec = decompose(model, plan, device=cuda_device)
+    for key in dec.obset.keys_in_order():
+        ob = dec.obset.unique[key]
+        got, want = replay(ob.to_strategy_spec(name=key), cuda_device,
+                           inputs=replay_inputs(ob, device=cuda_device))
+        assert all(v.device.type == "cuda" for v in got.values())
+        assert max_rel_excess(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_model_bug_localizes_on_the_card(cuda_device):
+    from repro_torch.modelcheck import check_model
+    r = check_model("gpt", "dp2xtp2", bug="wrong_spec", bug_layer=3,
+                    workers=0, device=cuda_device)
+    assert r.ok and r.failing_blocks == [4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,degree", [("dp", 2), ("dp_accum", 2),
+                                             ("fsdp", 2), ("tp_dp_2d", (4, 4))])
+def test_check_train_on_the_card(cuda_device, no_tf32, strategy, degree):
+    from repro_torch.api import degree_token
+    from repro_torch.gradcheck import (check_train, get_train_strategy,
+                                       replay_train)
+    r = check_train(strategy, degree=degree, device=cuda_device)
+    bench = json.load(open(BENCH))["gradcheck"][
+        f"train@{strategy}@deg{degree_token(degree)}"]
+    assert r.ok and _fires(r.reports) == bench["lemma_fires"]
+    for spec in get_train_strategy(strategy).build(degree=degree).values():
+        got, want = replay_train(spec, cuda_device)
+        assert max_rel_excess(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv,rc", [
+    (["--model", "gpt", "--plan", "dp2xtp2"], 0),
+    (["--model", "gpt", "--inject-bug", "wrong_spec", "--bug-layer", "3"], 1),
+    (["--train", "dp_accum"], 0),
+    (["--train", "dp_accum", "--inject-bug", "accum_no_rescale"], 1)])
+def test_model_and_train_cli_on_the_card(cuda_device, argv, rc):
+    """The CLI's default device is the card: no --device needed."""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.verify",
+                        *argv], capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=src))
+    assert r.returncode == rc, r.stderr
+    if rc == 0:
+        assert "REFINEMENT HOLDS" in r.stdout
+    else:
+        assert "failing blocks [4]" in r.stdout \
+            or "failing parameters ['w2']" in r.stdout

@@ -31,6 +31,14 @@ NEW_MODULES = [
     "repro_torch.runtime.cache", "repro_torch.runtime.chaos",
     "repro_torch.runtime.pool", "repro_torch.api.suite",
     "repro_torch.api.functions", "repro_torch.verify_your_own_fn",
+    "repro_torch.sharding", "repro_torch.sharding.specs",
+    "repro_torch.modelcheck", "repro_torch.modelcheck.obligations",
+    "repro_torch.modelcheck.blocks", "repro_torch.modelcheck.decompose",
+    "repro_torch.modelcheck.report", "repro_torch.modelcheck.stitch",
+    "repro_torch.modelcheck.schedule", "repro_torch.gradcheck",
+    "repro_torch.gradcheck.capture_grad", "repro_torch.gradcheck.transpose",
+    "repro_torch.gradcheck.obligations", "repro_torch.gradcheck.report",
+    "repro_torch.gradcheck.schedule",
 ]
 
 
@@ -101,15 +109,29 @@ def test_wrong_host_bug_raises():
 
 
 def test_unported_task_kinds_name_their_roadmap_items():
-    """Only the model, train-step and serving paths are still unported
-    (ROADMAP items 6-8): their task lists and their CLI flags raise."""
-    for fn, item in ((tapi.list_model_tasks, 6), (tapi.list_train_tasks, 7),
-                     (tapi.list_serve_tasks, 8),
-                     (lambda: cli.main(["--model", "gpt"]), 6),
-                     (lambda: cli.main(["--train", "dp"]), 7),
-                     (lambda: cli.main(["--serve", "tp_decode"]), 8)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    """Only the serving path is still unported (ROADMAP item 8): its task
+    list, its runner and its CLI flag raise."""
+    for fn in (tapi.list_serve_tasks,
+               lambda: tapi.check_serve_task("serve@tp_decode"),
+               lambda: cli.main(["--serve", "tp_decode"])):
+        with pytest.raises(NotImplementedError, match="item 8"):
             fn()
+
+
+def test_model_and_train_task_kinds_run(capsys):
+    """The model and train-step paths (ROADMAP items 6-7) run: their task
+    lists, their runners and their CLI flags."""
+    assert "gpt@dp2xtp2" in tapi.list_model_tasks()
+    assert "train@dp_accum" in tapi.list_train_tasks()
+    report = tapi.check_model_task("gpt@dp2xtp2", device="cpu")
+    assert report.ok and (report.total_blocks,
+                          report.unique_obligations) == (14, 3)
+    report = tapi.check_train_task("train@dp", device="cpu")
+    assert report.ok and report.verdict == "certificate"
+    code, out = _main(capsys, "--model", "gpt", "--device", "cpu")
+    assert code == 0 and "WHOLE-MODEL REFINEMENT HOLDS" in out
+    code, out = _main(capsys, "--train", "dp", "--device", "cpu")
+    assert code == 0 and "TRAIN-STEP REFINEMENT HOLDS" in out
 
 
 def test_quickstart(capsys):

@@ -1,0 +1,83 @@
+"""Helpers the port's parity tests share: carrying a JAX-captured graph
+into the port's engine, sharding numpy inputs per rank, evaluating a
+graph's defs, and float32 agreement to an output's scale. Imports neither
+JAX nor the JAX package (the graphs arrive as objects)."""
+import itertools
+
+import numpy as np
+import torch
+
+from repro_torch.core.convert import graph_from_obj, relation_from_obj
+from repro_torch.core.explain import term_to_obj
+
+
+def graph_obj(g) -> dict:
+    """A graph (either package's) as the plain object ``convert`` reads."""
+    return {"inputs": g.inputs, "outputs": g.outputs,
+            "defs": [[n, term_to_obj(t)] for n, t in g.defs],
+            "shapes": g.shapes, "dtypes": g.dtypes, "consts": g.consts}
+
+
+def carried(gs, gd, r_i) -> tuple:
+    """G_s, G_d and R_i of the JAX package as the port's objects."""
+    return (graph_from_obj(graph_obj(gs)), graph_from_obj(graph_obj(gd)),
+            relation_from_obj({n: [term_to_obj(t) for t in ts]
+                               for n, ts in r_i.items()}))
+
+
+def outcome(check, err_type, pretty, gs, gd, r_i) -> dict:
+    """One engine's verdict, R_o, fires and explanation on a task."""
+    try:
+        cert = check(gs, gd, r_i, explain=True)
+    except err_type as e:
+        return {"verdict": "refinement_error", "payload": e.payload(),
+                "explanation": e.explanation}
+    return {"verdict": "certificate",
+            "r_o": [(k, pretty(v, 999)) for k, v in cert.r_o.items()],
+            "fires": cert.stats["lemma_fires"],
+            "gs_ops": cert.stats["gs_ops"], "gd_ops": cert.stats["gd_ops"],
+            "explanation": cert.explanation}
+
+
+def shard(values, names, specs, mesh_axes) -> dict:
+    """Per-rank numpy pieces of the global inputs (``name@tag`` keys)."""
+    axes = list(mesh_axes)
+    env = {}
+    for coords in itertools.product(*(range(mesh_axes[a]) for a in axes)):
+        at = dict(zip(axes, coords))
+        tag = "@" + ",".join(f"{a}{c}" for a, c in zip(axes, coords))
+        for name, spec in zip(names, specs):
+            piece = values[name]
+            for d, entry in enumerate(tuple(spec)):
+                if entry is None:
+                    continue
+                group = (entry,) if isinstance(entry, str) else entry
+                k, n = 0, 1
+                for a in group:          # major to minor
+                    k, n = k * mesh_axes[a] + at[a], n * mesh_axes[a]
+                size = piece.shape[d] // n
+                piece = np.take(piece, range(k * size, (k + 1) * size),
+                                axis=d)
+            env[name + tag] = piece
+    return env
+
+
+def run(graph, env, evaluate) -> dict:
+    """``{output: float64 array}`` of ``graph`` evaluated def by def."""
+    env = dict(env)
+    env.update(graph.consts)
+    for name, term in graph.defs:
+        env[name] = evaluate(term, env)
+    return {o: np.asarray(env[o].numpy() if isinstance(env[o], torch.Tensor)
+                          else env[o], dtype=np.float64)
+            for o in graph.outputs}
+
+
+def close_to_scale(got, want, tol=1e-5) -> None:
+    """float32 agreement within ``tol`` of the output's scale: the largest
+    difference at most ``tol * max(1, max |want|)`` (an elementwise bound
+    would sit below float32's resolution on the largest values)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * max(1.0, np.abs(want).max()), err
