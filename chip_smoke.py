@@ -97,11 +97,38 @@ and gpt@dp2xtp2 on 2 spawned workers must give the in-process stable
 summary byte for byte, each worker tracing on the card and launching
 nothing. One [modelcheck]/[gradcheck] JSON line per task, then the
 phase's wall times.
+Phase 8 (run after phase 7) drives serving-path verification on the
+card (repro_torch.servecheck on cuda): tp_decode@2, sp_cache@2 and
+batched_decode@2x2 must certify with the targets' lemma fires (180,604,
+494,601, 5,274; explain steps as BENCH_verify.json's), stale_cache_shard
+must fail exactly ['step3'], pos_off_by_one ['step4'] and
+cache_gather_wrong_axis must be an unexpected_relation at ['step1'] (one
+certificate cache shared by the phase's in-process runs); every clean
+obligation is replayed on the card at rtol = atol = 2e-4; the path must
+launch no kernel; tp_decode@2 on 2 spawned workers must give the
+in-process stable summary byte for byte; and the explain smoke's three
+legs (python -m repro_torch.launch.explain_smoke) must pass on the card.
+Phase 9 (run after phase 6) trains on the card: gpt at full width and
+depth (12 x 768, vocab 50257, bf16, seed 0) for 50 steps of 8 x 1024
+tokens through launch.train's step function (step ms, tokens/s, peak
+memory, the loss every 10 steps; exactly 25 RMSNorm and 12 bf16
+attention launches a step, the backward launching neither; the mean loss
+of the last 5 steps below the first step's); the same model's gradients
+on one batch of 2 x 1024 against autograd through the plain versions on
+the card, in float32 (the attention's float32 route; loss within 1e-5
+relative, every parameter's gradient within 2e-4 relative RMS) and bf16
+(loss within 1e-2, gradient norm within 2e-2); yi-9b at full width, 8 of
+its 48 layers (AdamW's ~12 bytes a parameter would not fit 48), 2 steps
+of 1 x 4096 tokens in bf16, profiled for the share of a step's device
+time in each kernel's torch-op backward; launch.train's own main for 20
+steps of the reduced config (float32); then each kernel at these shapes,
+forward and backward, against its plain version and the PyTorch call
+(F.rms_norm, scaled_dot_product_attention) beside its bound.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
 qwen2-vl's, gemma3-27b's and command-r's shapes carry the launches of
-their model's phase-6 path). Any failure raises and exits non-zero, and
+their model's phase-6 path; the training shapes those of phase 9's). Any failure raises and exits non-zero, and
 the script exits non-zero without a CUDA device.
 """
 import contextlib
@@ -109,6 +136,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1460,6 +1488,492 @@ def phase7_checks(smi, device="cuda"):
         card=smi))}")
 
 
+
+# The serving-path targets (phase 8): each task's verdict, failing steps and
+# lemma fires. tp_decode@2's and batched_decode@2x2's fires are
+# BENCH_verify.json's; sp_cache@2's is the JAX package's count on the CPU,
+# which the port's equals (tests/test_torch_servecheck_sp.py).
+SERVE_TASKS = {
+    ("tp_decode", 2, None): ("certificate", [], 180604),
+    ("sp_cache", 2, None): ("certificate", [], 494601),
+    ("batched_decode", (2, 2), None): ("certificate", [], 5274),
+    ("tp_decode", 2, "stale_cache_shard"): ("refinement_error", ["step3"],
+                                            None),
+    ("sp_cache", 2, "pos_off_by_one"): ("refinement_error", ["step4"], None),
+    ("batched_decode", (2, 2), "cache_gather_wrong_axis"):
+        ("unexpected_relation", ["step1"], None),
+}
+
+
+def phase8_serve(smi, device="cuda"):
+    """Serving-path verification on the card: the three serve strategies
+    clean and their three bugs in process (one certificate cache shared
+    by the phase, so a bug run proves only the obligations its bug
+    changes), each clean obligation replayed, tp_decode@2 again on two
+    spawned workers against the in-process run, then the explain smoke's
+    three legs. ``device="cpu"`` rehearses it without a card."""
+    import tempfile
+    from repro_torch.api.replay import max_rel_excess, replay
+    from repro_torch.kernels import ops
+    from repro_torch.launch import explain_smoke
+    from repro_torch.servecheck import check_serve, get_serve_strategy
+    bench = json.loads((ROOT / "BENCH_verify.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    # --- the serving-path checks: launches from here to the read ---
+    reports = {}
+    with tempfile.TemporaryDirectory() as cache:
+        for (strategy, degree, bug), (verdict, failing, fires) in \
+                SERVE_TASKS.items():
+            # in this process (left to itself, check_serve would start a
+            # pool for the five obligations of batched_decode or a bug)
+            r = check_serve(strategy, degree=degree, bug=bug, workers=1,
+                            engine_opts={"explain": True}, cache=cache,
+                            device=device)
+            reports[(strategy, degree, bug)] = r
+            task = r.task_id()
+            check(r.ok and r.verdict == verdict
+                  and r.failing_steps == failing,
+                  f"{task}: {r.verdict}, failing steps {r.failing_steps}")
+            got_fires = _fires(r.reports)
+            rec = dict(task=task, verdict=r.verdict,
+                       failing_steps=r.failing_steps,
+                       steps=r.total_steps, obligations=r.unique_obligations,
+                       dedup_ratio=r.dedup_ratio, lemma_fires=got_fires,
+                       explain_steps=r.explanation["total_steps"],
+                       wall_ms=r.wall_s * 1e3,
+                       infer_ms=r.timing()["infer_s_sum"] * 1e3,
+                       cache_hits=r.cache["hits"],
+                       proved_ms={k: r.reports[k]["wall_s"] * 1e3
+                                  for k in r.reports
+                                  if (r.reports[k].get("runtime") or {})
+                                  .get("cache") != "hit"})
+            if bug is None:
+                check(got_fires == fires, f"{task}: {got_fires} fires, "
+                      f"the target is {fires}")
+                jax = bench["servecheck"].get(task, {})
+                if jax:
+                    check(rec["explain_steps"] == jax["explain_steps"],
+                          f"{task}: {rec['explain_steps']} explain steps "
+                          f"against BENCH's {jax['explain_steps']}")
+                t = time.perf_counter()
+                obset = get_serve_strategy(strategy).build(degree=degree)
+                excess = 0.0
+                for key in obset.keys_in_order():
+                    got, want = replay(
+                        obset.unique[key].to_strategy_spec(name=key), device)
+                    excess = max(excess, max_rel_excess(got, want))
+                check(excess <= 1.0, f"{task}: replay beyond rtol = atol = "
+                      f"2e-4 ({excess})")
+                rec.update(bench_lemma_fires=jax.get("lemma_fires"),
+                           bench_explain_steps=jax.get("explain_steps"),
+                           replay_ms=(time.perf_counter() - t) * 1e3,
+                           replay_excess=excess)
+            print(f"[servecheck] {json.dumps(rec)}")
+    counts = ops.launch_counts()
+    # --------------------------------------------------------------------
+    check(not any(counts.values()),
+          f"the serving-path checks launched port kernels: {counts}")
+    inproc_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    pooled, tracer = _traced(lambda: check_serve(
+        "tp_decode", degree=2, workers=2, device=device))
+    pool_s = time.perf_counter() - t
+    inproc = reports[("tp_decode", 2, None)]
+    check(pooled.workers == 2 and json.dumps(pooled.stable_summary(),
+                                             sort_keys=True)
+          == json.dumps(inproc.stable_summary(), sort_keys=True),
+          "tp_decode@2 on 2 workers differs from the in-process run")
+    check(not any((rep.get("runtime") or {}).get("degraded_reason")
+                  for rep in pooled.reports.values()),
+          "tp_decode@2 on 2 workers degraded to in-process")
+    spans = _check_worker_spans(tracer, device, "servecheck pool")
+    check(len(spans) == 4, f"servecheck pool: {len(spans)} worker spans")
+    t = time.perf_counter()
+    failures = explain_smoke.run(device)
+    explain_s = time.perf_counter() - t
+    check(not failures, f"explain smoke: {failures}")
+    print(f"[phase8] {json.dumps(dict(
+        serve_tasks=len(SERVE_TASKS), inproc_s=inproc_s, pool_s=pool_s,
+        explain_smoke_s=explain_s, phase8_s=time.perf_counter() - t_phase,
+        launches=counts, card=smi))}")
+
+
+# Phase 9's configurations: gpt at full width and depth (its config's
+# docstring: "the 100M end-to-end training driver"), 50 steps of 8 x 1024
+# tokens; yi-9b at full width, 8 of its 48 layers (AdamW keeps ~12 bytes a
+# parameter: 48 layers are ~106 GB), one sequence of 4096 tokens.
+GPT_STEPS, GPT_BATCH, GPT_SEQ = 50, 8, 1024
+GRAD_BATCH = 2                 # the gradient check's batch of GPT_SEQ tokens
+YI_LAYERS, YI_SEQ, YI_STEPS = 8, 4096, 2
+TRAIN_CLI_STEPS = 20           # launch.train's own main, reduced config
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The models' kernel dispatch sent to the plain versions on the card
+    too: the reference path the kernels' gradients are held against."""
+    from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn
+    saved = ops.rmsnorm, ops.flash_attention
+    ops.rmsnorm = lambda x, s, eps=1e-6: rn.rmsnorm_plain(x, s, eps)
+    ops.flash_attention = lambda q, k, v, *, causal=True: \
+        fa.flash_attention_plain(q, k, v, causal=causal)
+    try:
+        yield
+    finally:
+        ops.rmsnorm, ops.flash_attention = saved
+
+
+@contextlib.contextmanager
+def backward_ranges():
+    """Each kernel's torch-op backward in a profiler range of its name."""
+    from torch.profiler import record_function
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    saved = {}
+    for mod, name in ((fa, "flash_attention_backward"),
+                      (rn, "rmsnorm_backward")):
+        real = saved[(mod, name)] = getattr(mod, name)
+
+        def ranged(*a, _real=real, _name=name, **k):
+            with record_function(_name):
+                return _real(*a, **k)
+        setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        for (mod, name), real in saved.items():
+            setattr(mod, name, real)
+
+
+def _rel_rms(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def _synthetic(cfg, batch, seq, step, device):
+    from repro_torch.data import SyntheticTextDataset
+    return SyntheticTextDataset(vocab=cfg.vocab, seq_len=seq,
+                                batch=batch).batch_at(step, device)
+
+
+def train_gpt(smi):
+    """(a) gpt at full width and depth in bf16 through launch.train's step
+    function: step ms, tokens/s, peak memory, the loss every 10 steps and
+    the launches of every step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = registry.load_config("gpt")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype)
+          == (12, 768, 50257, "bfloat16"), f"gpt config {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = init_state(cfg, 0, "cuda")
+    step_fn = make_train_step(cfg, TrainConfig())
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1,
+                "flash_attention_bf16": cfg.n_layers,
+                "flash_attention_fp32": 0}
+    losses, step_ms, launches = {}, [], {k: 0 for k in per_step}
+    for step in range(GPT_STEPS):
+        batch = _synthetic(cfg, GPT_BATCH, GPT_SEQ, step, "cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch)
+        loss = float(m["loss"])            # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = ops.launch_counts()
+        check(all(counts[k] == n for k, n in per_step.items()),
+              f"gpt step {step}: launches {counts}, a step makes {per_step}")
+        for k in per_step:
+            launches[k] += counts[k]
+        check(math.isfinite(loss), f"gpt step {step}: loss {loss}")
+        if step % 10 == 0 or step >= GPT_STEPS - 5:
+            losses[step] = loss
+    first = losses[0]
+    last5 = sum(losses[s] for s in range(GPT_STEPS - 5, GPT_STEPS)) / 5
+    check(last5 < first, f"gpt: the last 5 steps' mean loss {last5} is not "
+          f"below the first step's {first}")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    rec = dict(model="gpt", layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=[GPT_BATCH, GPT_SEQ], dtype=cfg.dtype,
+               steps=GPT_STEPS, first_step_ms=step_ms[0],
+               median_step_ms=steady, tokens_per_s=GPT_BATCH * GPT_SEQ
+               / steady * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss={str(k): v for k, v in losses.items()},
+               last5_mean_loss=last5, launches_per_step=per_step,
+               launches=launches, card=smi)
+    print(f"[train] {json.dumps(rec)}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grads_against_plain(smi):
+    """(b) the gradients of the kernels' path against autograd through the
+    plain versions on the card, same weights, one batch of gpt at full
+    width: fp32 (K2's fp32 route) and bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import make_grad_fn, trainable
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(registry.load_config("gpt"), dtype=dtype)
+        model = trainable(registry.init_params(cfg, 0, "cuda"))
+        batch = _synthetic(cfg, GRAD_BATCH, GPT_SEQ, 0, "cuda")
+        grad_fn = make_grad_fn(cfg)
+        ops.reset_launch_counts()
+        grads, m = grad_fn(model, batch)
+        counts = ops.launch_counts()
+        route = "flash_attention_bf16" if dtype == "bfloat16" \
+            else "flash_attention_fp32"
+        check(counts["rmsnorm"] == 2 * cfg.n_layers + 1
+              and counts[route] == cfg.n_layers,
+              f"gpt {dtype} gradient: launches {counts}")
+        with plain_kernels():
+            ref, mr = grad_fn(model, batch)
+        check(ops.launch_counts() == counts,
+              "the plain path launched a kernel")
+        loss_rel = abs(float(m["loss"]) - float(mr["loss"])) \
+            / abs(float(mr["loss"]))
+        norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                              for g in grads.values())).item()
+        norm_ref = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                  for g in ref.values())).item()
+        leaf = max((_rel_rms(grads[n], ref[n]), n) for n in grads)
+        rec = dict(dtype=dtype, loss=float(m["loss"]),
+                   plain_loss=float(mr["loss"]), loss_rel=loss_rel,
+                   grad_norm=norm, plain_grad_norm=norm_ref,
+                   grad_norm_rel=abs(norm - norm_ref) / norm_ref,
+                   worst_leaf_rel_rms=leaf[0], worst_leaf=leaf[1],
+                   launches=counts, card=smi)
+        if dtype == "float32":
+            check(loss_rel <= 1e-5 and leaf[0] <= 2e-4,
+                  f"fp32 gradients against the plain path: {rec}")
+        else:
+            check(loss_rel <= 1e-2 and rec["grad_norm_rel"] <= 2e-2,
+                  f"bf16 gradients against the plain path: {rec}")
+        print(f"[train-grads] {json.dumps(rec)}")
+        out[dtype] = rec
+        del model, grads, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_yi(smi):
+    """(c) yi-9b at full width, YI_LAYERS of its 48 layers, one sequence of
+    YI_SEQ tokens in bf16, YI_STEPS steps: finite losses, peak memory, and
+    from the profiler the share of a step's device time in each kernel's
+    torch-op backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = dataclasses.replace(registry.load_config("yi-9b"),
+                              n_layers=YI_LAYERS)
+    print(f"[train] yi-9b cut to {YI_LAYERS} of 48 layers (AdamW state: "
+          f"~12 bytes a parameter)")
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = init_state(cfg, 0, "cuda")
+    step_fn = make_train_step(cfg, TrainConfig())
+    losses, step_ms = [], []
+    for step in range(YI_STEPS):
+        batch = _synthetic(cfg, 1, YI_SEQ, step, "cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if step == YI_STEPS - 1:
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with backward_ranges(), profile(activities=acts) as prof:
+                model, opt, m = step_fn(model, opt, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+        else:
+            model, opt, m = step_fn(model, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = ops.launch_counts()
+        check(counts["rmsnorm"] == 2 * YI_LAYERS + 1
+              and counts["flash_attention_bf16"] == YI_LAYERS,
+              f"yi-9b step {step}: launches {counts}")
+    check(all(math.isfinite(x) for x in losses), f"yi-9b losses {losses}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    shares = {}
+    for name in ("flash_attention_backward", "rmsnorm_backward"):
+        ranges = [e for e in prof.events() if e.name == name
+                  and e.device_type == DeviceType.CPU]
+        ms = sum(e.device_time_total for e in ranges) / 1e3
+        shares[name] = dict(calls=len(ranges), device_ms=ms,
+                            share_of_device_busy=ms / dev_ms)
+    fwd = {k: sum(e.self_device_time_total for e in kernels if k in e.key)
+           / 1e3 for k in ("rmsnorm", "flash_fwd")}
+    rec = dict(model="yi-9b", layers=YI_LAYERS, d_model=cfg.d_model,
+               batch=[1, YI_SEQ], dtype=cfg.dtype, losses=losses,
+               step_ms=step_ms, profiled_step_device_busy_ms=dev_ms,
+               backward=shares, forward_kernels_ms=fwd,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               n_params=sum(p.numel() for p in model.parameters()),
+               card=smi)
+    print(f"[train] {json.dumps(rec)}")
+    del model, opt, prof
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_cli():
+    """(d) launch.train's own main on the card, the reduced config (fp32):
+    K2's fp32 route and K1 on its path, launches counted."""
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli_mod
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli_mod.main(["--steps", str(TRAIN_CLI_STEPS)])
+    counts = ops.launch_counts()
+    lines = out.getvalue().splitlines()
+    check([ln.split()[1] for ln in lines]
+          == [str(s) for s in range(0, TRAIN_CLI_STEPS, 10)]
+          and all(math.isfinite(float(ln.split()[-1])) for ln in lines),
+          f"launch.train printed {lines}")
+    layers = 2                                 # gpt's reduced() depth
+    check(counts["rmsnorm"] == TRAIN_CLI_STEPS * (2 * layers + 1)
+          and counts["flash_attention_fp32"] == TRAIN_CLI_STEPS * layers
+          and counts["flash_attention_bf16"] == 0,
+          f"launch.train: launches {counts}")
+    print(f"[train-cli] {json.dumps(dict(lines=lines, launches=counts))}")
+    return counts
+
+
+def train_kernel_records(peaks, smi):
+    """Each kernel at the training path's shapes, forward and backward:
+    the kernel, its plain version and one PyTorch call, timed with CUDA
+    events beside the bound; the backward (torch ops) beside the library
+    call's backward. Shapes: gpt full (K1 at 8192 x 768, K2 at
+    (8, 1024, 12/12, 64) bf16) and launch.train's reduced default (K1 at
+    512 x 128, K2 at (4, 128, 4/2, 32) fp32)."""
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    bw, bf16_rate, f32_rate = peaks
+    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def bound(nbytes, nops, dt):
+        t_bytes, t_ops = nbytes / bw * 1e3, nops / rate[dt] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
+
+    def backward_ms(fn, inputs, dy, it):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*xs)
+        return time_ms(lambda: torch.autograd.grad(out, xs, dy,
+                                                   retain_graph=True),
+                       it, flush)
+
+    records = []
+    for rows, D, dt in ((GPT_BATCH * GPT_SEQ, 768, torch.bfloat16),
+                        (4 * 128, 128, torch.float32)):
+        x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+        s = (torch.randn(D, generator=g, device="cuda") * 0.1).to(dt)
+        dy = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+        w = (1.0 + s.float()).to(dt)
+        tol = 1e-5 if dt == torch.float32 else 3e-2
+        n = x.numel() * x.element_size()
+        rec = dict(kernel="rmsnorm", shape=[rows, D], dtype=str(dt),
+                   plan=rn.plan(rows, D, dt, rn.sm_count(0)).name,
+                   max_abs_err=max_err(rn.rmsnorm(x, s),
+                                       rn.rmsnorm_plain(x, s), tol),
+                   ms=time_ms(lambda: rn.rmsnorm(x, s), 50, flush),
+                   plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, s), 50,
+                                    flush),
+                   library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6),
+                                      50, flush),
+                   backward_ms=time_ms(lambda: rn.rmsnorm_backward(
+                       x, s, dy, 1e-6), 50, flush),
+                   library_backward_ms=backward_ms(
+                       lambda x, w: F.rms_norm(x, (D,), w, 1e-6), (x, w),
+                       dy, 50))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            2 * n + s.numel() * s.element_size(), 4 * x.numel(),
+            torch.float32)
+        # backward: read x, scale, dy; write dx, dscale
+        rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
+            3 * n + 2 * s.numel() * s.element_size(), 8 * x.numel(),
+            torch.float32)
+        records.append(rec)
+        print(f"[K1 train] {json.dumps(rec)}")
+    for (B, S, H, KV, hd), dt in (((GPT_BATCH, GPT_SEQ, 12, 12, 64),
+                                   torch.bfloat16),
+                                  ((4, 128, 4, 2, 32), torch.float32)):
+        q, k, v, dy = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                       for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                     (B, S, KV, hd), (B, S, H, hd)))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}",
+                   shape=[B, S, H, KV, hd], causal=True, dtype=str(dt))
+        if dt == torch.float32:
+            rec["max_abs_err"] = max_err(got, want, 2e-4)
+        else:
+            rel = row_rel_err(got, want)
+            check(rel <= 1e-2, f"results disagree: worst row relative "
+                  f"error {rel} beyond 1e-2")
+            rec["max_abs_err"] = (got.float() - want.float()).abs().max() \
+                .item()
+            rec["row_rel_err"] = rel
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        rec.update(
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20,
+                       flush),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True), 20, flush),
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt), 20, flush),
+            backward_ms=time_ms(lambda: fa.flash_attention_backward(
+                q, k, v, dy, True), 20, flush),
+            library_backward_ms=backward_ms(sdpa, (qt, kt, vt),
+                                            dy.transpose(1, 2), 20))
+        pairs = B * H * S * (S + 1) // 2
+        nbytes = q.element_size() * B * S * hd * (H + KV)
+        rec["bound_ms"], rec["bound_by"] = bound(2 * nbytes, 4 * hd * pairs,
+                                                 dt)
+        # backward: read q, k, v, dy, write dq, dk, dv; five products
+        # (S recomputed, dP, dV, dQ, dK) over the causal pairs
+        rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
+            4 * nbytes, 10 * hd * pairs, dt)
+        records.append(rec)
+        print(f"[K2 train] {json.dumps(rec)}")
+        del q, k, v, dy, got, want
+    del flush
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase9_train(peaks, smi):
+    """Training on the card: (a) gpt at full width and depth, 50 steps;
+    (b) its gradients against the plain path in fp32 and bf16; (c) yi-9b
+    at full width, 8 of 48 layers, 2 steps, profiled; (d) launch.train's
+    main on the reduced config; then each kernel at these shapes."""
+    t = time.perf_counter()
+    gpt = train_gpt(smi)
+    grads = grads_against_plain(smi)
+    yi = train_yi(smi)
+    cli = train_cli()
+    records = train_kernel_records(peaks, smi)
+    print(f"[phase9] {json.dumps(dict(
+        phase9_s=time.perf_counter() - t, card=smi))}")
+    return dict(gpt=gpt, grads=grads, yi=yi, cli=cli, records=records)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1478,9 +1992,11 @@ def main():
     torch.cuda.empty_cache()
     phase3_windowed()
     families = phase6_families()
+    train = phase9_train(peaks, smi)
     inproc, inproc_s = phase4_verify()
     phase5_runtime(inproc, inproc_s, smi)
     phase7_checks(smi)
+    phase8_serve(smi)
 
     # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)
@@ -1547,6 +2063,30 @@ def main():
                                     "tflops", "bound_share", "host_us",
                                     "library_host_us", "shape")},
             causal=causal, card=smi))
+    # each kernel at the training path's shapes, with the launches of the
+    # phase-9 path that gives it that shape: gpt's 50 steps at full width
+    # (bf16), launch.train's reduced default (fp32)
+    for name, rec, launches in (
+            ("rmsnorm@gpt_train", train["records"][0],
+             train["gpt"]["launches"]["rmsnorm"]),
+            ("rmsnorm@train_reduced", train["records"][1],
+             train["cli"]["rmsnorm"]),
+            ("flash_attention_bf16@gpt_train", train["records"][2],
+             train["gpt"]["launches"]["flash_attention_bf16"]),
+            ("flash_attention_fp32@train_reduced", train["records"][3],
+             train["cli"]["flash_attention_fp32"])):
+        src = "rmsnorm.cu" if rec["kernel"] == "rmsnorm" else \
+            f"{BF16_LIB if 'bf16' in name else 'flash_attention'}.cu"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces="src/repro/kernels/rmsnorm.py:21"
+            if rec["kernel"] == "rmsnorm" else fa_src,
+            launches=launches, path="training",
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "backward_ms", "library_backward_ms",
+                                    "backward_bound_ms", "shape")},
+            card=smi))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

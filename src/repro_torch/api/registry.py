@@ -260,23 +260,25 @@ def check_train_task(task: str, **kw):
 
 
 # ---------------------------------------------------------------------------
-# serving-path tasks: not ported yet
+# serving-path tasks
 # ---------------------------------------------------------------------------
-# The JAX package lists and runs ``serve@strategy`` (servecheck) tasks
-# beside the others. Its subsystem comes with a later slice of the port.
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} tasks are not ported to repro_torch yet; see ROADMAP.md, "
-        f"queue 1, item {item}")
-
 
 def list_serve_tasks() -> Tuple[str, ...]:
-    """``serve@strategy`` ids (ROADMAP queue 1, item 8: not ported yet)."""
-    _not_ported("serving-path (servecheck)", 8)
+    """``serve@strategy`` ids: every registered serving strategy."""
+    from ..servecheck import list_serve_strategies
+    return tuple(f"serve@{s}" for s in list_serve_strategies())
 
 
 def check_serve_task(task: str, **kw):
-    """Run one ``serve@strategy`` task (ROADMAP queue 1, item 8: not
-    ported)."""
-    _not_ported("serving-path (servecheck)", 8)
+    """Run one ``serve@strategy`` serving-path task -> ``ServeReport``.
+
+    Keyword arguments pass through to
+    :func:`repro_torch.servecheck.check_serve` (``degree=``, ``bug=``,
+    ``workers=``, ``engine_opts=``, ``device=``, ...).
+    """
+    prefix, sep, strategy = str(task).partition("@")
+    if not sep or prefix != "serve" or not strategy:
+        raise KeyError(f"bad serve task `{task}` — expected "
+                       f"`serve@strategy` like `serve@tp_decode`")
+    from ..servecheck import check_serve
+    return check_serve(strategy, **kw)

@@ -20,6 +20,12 @@ Unlike the Pallas wrapper, K/V may carry fewer heads than Q (GQA: query head
 ``h`` reads KV head ``h // (H // KV)``, the ``jnp.repeat`` /
 ``torch.repeat_interleave`` order), S need not divide the tile, and inputs
 are read through their strides with no transposes.
+
+``FlashAttentionFunction`` makes the kernels differentiable: its forward
+is the launch, its backward the closed-form gradient in torch ops
+(``flash_attention_backward``), which recomputes the probabilities from q
+and k. The Pallas kernel has no backward kernel either: the JAX package
+differentiates the XLA ops of its layers.
 """
 from __future__ import annotations
 
@@ -55,6 +61,42 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
         s = s.masked_fill(~mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+
+
+def flash_attention_backward(q, k, v, dy, causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_plain` for the
+    upstream gradient ``dy`` (B, S, H, hd). The probabilities P are
+    recomputed from q and k at scale hd**-0.5 (with the -1e30 mask), then
+
+        dV = P^T dY,  dS = P * (dY V^T - rowsum(P * dY V^T)),
+        dQ = dS K * scale,  dK = dS^T Q * scale
+
+    in fp32 per query head; dK and dV are summed over each KV head's group
+    of H // KV query heads and cast back to the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf, kf, vf, df = q.float(), k.float(), v.float(), dy.float()
+    if G > 1:
+        kf = kf.repeat_interleave(G, dim=2)
+        vf = vf.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, df)
+    dp = torch.einsum("bqhd,bkhd->bhqk", df, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    if G > 1:
+        dk = dk.reshape(B, S, KV, G, hd).sum(dim=3)
+        dv = dv.reshape(B, S, KV, G, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def tma_strides(shape, strides) -> tuple[int, int, int]:
@@ -177,3 +219,20 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          ((k.stride(), k.data_ptr()),
                           (v.stride(), v.data_ptr())))
     return KERNELS[route](q, k, v, causal=causal)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel of q's dtype under autograd: the forward launches it (and
+    counts the launch), the backward is :func:`flash_attention_backward`
+    on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, dy, ctx.causal), None)

@@ -2,11 +2,16 @@
 
 A CPU tensor goes to the kernel's plain version. A CUDA tensor goes to the
 kernel, which launches or raises: there is no fallback. Any other device
-raises. Each kernel wrapper counts its launches (``launch_counts``): RMSNorm
-in all and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``); attention
-per route (bf16 on tensor cores, fp32 scalar), with ``flash_attention``
-their sum."""
+raises. On CUDA, a call that autograd records (grad enabled and an input
+that requires grad) goes through the kernel's ``autograd.Function``, whose
+forward launches the same kernel; every other call launches it directly,
+without autograd's host cost. Each kernel wrapper counts its launches
+(``launch_counts``), on both branches: RMSNorm in all and per launch plan
+(``rmsnorm_rows``, ``rmsnorm_ring``); attention per route (bf16 on tensor
+cores, fp32 scalar), with ``flash_attention`` their sum."""
 from __future__ import annotations
+
+import torch
 
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
@@ -23,8 +28,15 @@ def _route(t, name):
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
+def _recorded(*ts) -> bool:
+    """Whether autograd records a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     if _route(x, "rmsnorm"):
+        if _recorded(x, scale):
+            return _rn.RMSNormFunction.apply(x, scale, eps)
         return _rn.rmsnorm(x, scale, eps)
     return _rn.rmsnorm_plain(x, scale, eps)
 
@@ -32,6 +44,8 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
     if _route(q, "flash_attention"):
+        if _recorded(q, k, v):
+            return _fa.FlashAttentionFunction.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal=causal)
     return _fa.flash_attention_plain(q, k, v, causal=causal)
 

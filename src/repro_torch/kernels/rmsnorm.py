@@ -12,6 +12,11 @@ count: ``rows`` (one block per row) for the few rows of a decode step,
 ``ring`` (a persistent grid fed by TMA bulk copies) for prefill. Both read
 rows in 16-byte chunks, so x's base, its row stride and a row's bytes must
 be multiples of 16 (``check_bulk_copy``); other input raises ``ValueError``.
+
+``RMSNormFunction`` makes the kernel differentiable: its forward is the
+kernel launch, its backward the closed-form gradient in torch ops
+(``rmsnorm_backward``). The Pallas kernel has no backward kernel either:
+the JAX package differentiates the XLA ops of its layers.
 """
 from __future__ import annotations
 
@@ -42,6 +47,24 @@ def rmsnorm_plain(x, scale, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_backward(x, scale, dy, eps: float = 1e-6):
+    """Gradients ``(dx, dscale)`` of ``y = x * r * (1 + scale)``, where
+    ``r = rsqrt(mean(x^2, -1) + eps)``, for the upstream gradient ``dy``:
+
+        dx     = r * (g - xhat * mean(g * xhat, -1)),  g = dy * (1 + scale)
+        dscale = sum over rows of dy * xhat,           xhat = x * r
+
+    computed in fp32 and cast back to x's and scale's dtypes, as the
+    forward computes in fp32 and casts back."""
+    xf, df = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    g = df * (1.0 + scale.float())
+    dx = r * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (df * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 def _threads(D: int, element_size: int) -> int:
@@ -223,6 +246,24 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 rmsnorm.launches = 0
 rmsnorm.plan_launches = {"rows": 0, "ring": 0}
 rmsnorm.row_launches = collections.Counter()  # launches by row count
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The kernel under autograd: the forward launches it (and counts the
+    launch), the backward is :func:`rmsnorm_backward` on the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
+        return dx, dscale, None
 
 
 def empty_launch(blocks: int, threads: int):

@@ -19,9 +19,16 @@ forward specs):
     python -m repro_torch.launch.verify --train dp_accum \
         [--inject-bug accum_no_rescale] [--degree 2] [--workers 2] [--json]
 
-Both exit 0 on a certificate, 1 when an injected bug is caught and
-localized to its block or parameter, and 2 when a caller mistake or a
-mis-localized bug is reported.
+Serving-path verification (the ``repro_torch.servecheck`` subsystem —
+sharded-KV-cache decode steps deduped by position class, plus the
+prefill read proving the chain composes):
+
+    python -m repro_torch.launch.verify --serve tp_decode \
+        [--inject-bug stale_cache_shard] [--degree 2] [--workers 2] [--json]
+
+All three exit 0 on a certificate, 1 when an injected bug is caught and
+localized to its block, parameter or decode step, and 2 when a caller
+mistake or a mis-localized bug is reported.
 
 Bring-your-own-function verification (the generic frontend,
 ``repro_torch.core.from_fx`` + ``repro_torch.api.verify_functions``):
@@ -37,18 +44,20 @@ without a GPU the run raises rather than falling back to the CPU). Exit
 codes: 0 for a certificate, 1 for a refinement failure or any other
 non-certificate verdict of a case, 2 for a harness problem on the ``--fn``
 path (bad target, capture or engine error). ``--json`` emits the
-``Report`` (or the ``ModelReport``/``TrainReport``) in the JAX CLI's
-envelope (``schema_version``, ``kind``, ``timing``, ``report``, and
-``metrics``/``explanation`` only under ``--metrics``/``--explain``);
-``--list`` prints the cases, the ``model@plan`` and ``train@strategy``
-tasks and every bug, each tagged ``[case]``, ``[model]`` or ``[train]``.
+``Report`` (or the ``ModelReport``/``TrainReport``/``ServeReport``) in the
+JAX CLI's envelope (``schema_version``, ``kind``, ``timing``, ``report``,
+and ``metrics``/``explanation`` only under ``--metrics``/``--explain``);
+``--list`` prints the cases, the ``model@plan``, ``train@strategy`` and
+``serve@strategy`` tasks and every bug, each tagged ``[case]``,
+``[model]``, ``[train]`` or ``[serve]``.
 For matrix runs use the suite runner: ``python -m repro_torch.api``.
 
 The case path runs through the shared runtime (``repro_torch.runtime``):
 in this process by default, in one supervised worker process (spawned,
 tracing on the same device, killed if it overruns its budget) under
 ``--timeout`` or ``--workers``; ``--cache`` serves a repeat run from the
-certificate cache.  ``--model`` and ``--train`` fan their obligations over
+certificate cache.  ``--model``, ``--train`` and ``--serve`` fan their
+obligations over
 ``--workers`` spawned workers (default: in this process), each budgeted
 ``--timeout`` seconds (default 600) from the moment it starts.
 
@@ -64,9 +73,6 @@ Chrome/Perfetto-loadable ``trace.json`` (plus a grep-friendly
 under ``--json`` — adds a ``metrics`` key to the envelope.  ``--explain``
 prints the proof provenance (the lemma chain of a certificate, the failure
 frontier of a refinement error).  None of them changes certificates.
-
-``--serve`` belongs to a subsystem that is not ported yet; it raises
-``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -77,7 +83,7 @@ import sys
 
 from ..api import (build_spec, degree_token, get_strategy, list_bugs,
                    list_strategies, parse_degree, task_id)
-from ..api.registry import check_serve_task, list_model_tasks, \
+from ..api.registry import list_model_tasks, list_serve_tasks, \
     list_train_tasks
 from ..api.suite import add_cache_flags, cache_from_args
 
@@ -91,12 +97,14 @@ def _print_registry():
     """One line per registered task, each tagged by kind — ``[case]``
     single-layer strategies (``--case``), ``[model]`` whole-model tasks
     (``--model``/``--plan``), ``[train]`` training-step tasks
-    (``--train``) — then one per bug."""
+    (``--train``), ``[serve]`` serving-path tasks (``--serve``) — then one
+    per bug."""
     from ..gradcheck import get_train_strategy, list_train_bugs
     from ..modelcheck.decompose import BUGS as MODEL_BUGS
+    from ..servecheck import get_serve_strategy, list_serve_bugs
 
-    print("registered tasks (kind-tagged; see --case / --model / "
-          "--train):")
+    print("registered tasks (kind-tagged; see --case / --model / --train "
+          "/ --serve):")
     for name in list_strategies():
         entry = get_strategy(name)
         bugs = ", ".join(entry.bug_names()) or "-"
@@ -112,6 +120,12 @@ def _print_registry():
         degs = "/".join(degree_token(d) for d in entry.degrees)
         print(f"  [train] {task:16s} degrees={degs:10s} "
               f"params={','.join(entry.params):8s} bugs: {bugs}")
+    for task in list_serve_tasks():
+        entry = get_serve_strategy(task.partition("@")[2])
+        bugs = ", ".join(entry.bug_names()) or "-"
+        degs = "/".join(degree_token(d) for d in entry.degrees)
+        print(f"  [serve] {task:16s} degrees={degs:10s} "
+              f"steps={entry.n_steps:<8d} bugs: {bugs}")
     print("registered bugs (bug -> host, detection):")
     for bug, (host, bspec) in sorted(list_bugs().items()):
         print(f"  [case]  {bug:22s} -> {host:12s} ({bspec.expected})")
@@ -119,6 +133,8 @@ def _print_registry():
         print(f"  [model] {bug:22s} -> --model tasks (refinement_error)")
     for bug, (host, bspec) in sorted(list_train_bugs().items()):
         print(f"  [train] {bug:22s} -> train@{host:12s} ({bspec.expected})")
+    for bug, (host, bspec) in sorted(list_serve_bugs().items()):
+        print(f"  [serve] {bug:22s} -> serve@{host:12s} ({bspec.expected})")
 
 
 def _json_envelope(kind: str, report_json: dict, timing: dict,
@@ -276,6 +292,48 @@ def _run_train(args, cache) -> int:
     return 0 if report.ok else 1
 
 
+
+def _run_serve(args, cache) -> int:
+    """The ``--serve`` path; returns the exit code."""
+    from ..servecheck import check_serve
+    from ..servecheck.schedule import DEFAULT_TIMEOUT_S
+    try:
+        report = check_serve(args.serve, degree=args.degree,
+                             bug=args.inject_bug, workers=args.workers,
+                             engine_opts=_cli_engine_opts(args),
+                             timeout_s=args.timeout or DEFAULT_TIMEOUT_S,
+                             cache=cache, device=args.device)
+    except (KeyError, ValueError) as e:
+        print(f"[servecheck] {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(_json_envelope("serve", report.to_json(), report.timing(),
+                             metrics=_metrics_snapshot(args),
+                             explain=args.explain))
+    else:
+        print(report.to_markdown())
+        if args.explain:
+            _print_narrative(report.explanation)
+        if report.verdict == "certificate":
+            print(f"SERVING-PATH REFINEMENT HOLDS ({report.total_steps} "
+                  f"serving blocks proved by {report.unique_obligations} "
+                  f"obligations, dedup {report.dedup_ratio:.1f}x — decode "
+                  f"chain refines full-sequence prefill)")
+        else:
+            print(f"SERVING-PATH VERDICT: {report.verdict} — failing "
+                  f"steps {report.failing_steps}")
+    # exit codes mirror the model/train paths: 0 clean certificate; 1
+    # expected failure (injected serving bug detected AND localized to
+    # its decode step — report.ok encodes that); 2 a harness problem.
+    if args.inject_bug is not None:
+        if not report.ok:
+            print(f"[servecheck] injected bug NOT correctly localized "
+                  f"(expected step{report.bug_step}, failing steps "
+                  f"{report.failing_steps})", file=sys.stderr)
+            return 2
+        return 1
+    return 0 if report.ok else 1
+
 def _load_fn_task(target: str):
     """Resolve a ``--fn module:callable`` target and call it.
 
@@ -393,6 +451,7 @@ def _case_report(args, cache) -> dict:
 def main(argv=None):
     from ..gradcheck import list_train_bugs, list_train_strategies
     from ..modelcheck.decompose import BUGS as model_bugs
+    from ..servecheck import list_serve_bugs, list_serve_strategies
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default=None, choices=list_strategies(),
                     help="single-layer strategy case (default: tp_layer "
@@ -421,26 +480,31 @@ def main(argv=None):
                     help="training-step verification: a train strategy "
                          "like `dp_accum` (see --list)")
     ap.add_argument("--serve", default=None,
-                    help="serving-path verification (not ported yet)")
+                    choices=list_serve_strategies(),
+                    help="serving-path verification: a serve strategy "
+                         "like `tp_decode` (see --list)")
     ap.add_argument("--inject-bug", default=None,
-                    choices=tuple(model_bugs) + tuple(
-                        sorted(list_train_bugs())),
+                    choices=tuple(model_bugs)
+                    + tuple(sorted(list_train_bugs()))
+                    + tuple(sorted(list_serve_bugs())),
                     help="inject a whole-model bug into one layer "
-                         "(--model) or a gradient bug into one parameter "
-                         "(--train)")
+                         "(--model), a gradient bug into one parameter "
+                         "(--train), or a serving bug into one decode "
+                         "step (--serve)")
     ap.add_argument("--bug-layer", type=int, default=None,
                     help="layer index for --model --inject-bug "
                          "(default: middle)")
     ap.add_argument("--workers", type=int, default=None,
                     help="spawned worker processes: the pool size for "
-                         "--model/--train (default: in this process), or "
+                         "--model/--train/--serve (default: in this "
+                         "process), or "
                          "one supervised worker for --case (N >= 1)")
     ap.add_argument("--timeout", type=float, default=None,
                     help="per-task budget in seconds, enforced by the "
                          "supervised runtime from the moment a task "
                          "starts on its worker (default: unbudgeted for "
                          "--case, 600 s per obligation for "
-                         "--model/--train)")
+                         "--model/--train/--serve)")
     add_cache_flags(ap)
     ap.add_argument("--list", action="store_true",
                     help="print registered case/model/train tasks and "
@@ -514,11 +578,11 @@ def _finish_obs(args, tracer) -> None:
 
 
 def _dispatch(ap, args):
-    """Route the parsed args to the case/model/train/fn path (serve
-    raises: not ported yet)."""
+    """Route the parsed args to the case/model/train/serve/fn path."""
     from ..gradcheck import list_train_bugs
     from ..modelcheck.decompose import BUGS as model_bugs
     from ..runtime import resolve_cache
+    from ..servecheck import list_serve_bugs
     paths = [flag for flag, v in (("--model", args.model),
                                   ("--train", args.train),
                                   ("--serve", args.serve),
@@ -533,6 +597,9 @@ def _dispatch(ap, args):
         if args.inject_bug in list_train_bugs():
             ap.error(f"--inject-bug {args.inject_bug} is a gradient bug — "
                      f"it requires --train")
+        if args.inject_bug in list_serve_bugs():
+            ap.error(f"--inject-bug {args.inject_bug} is a serving bug — "
+                     f"it requires --serve")
         rc = _run_model(args, resolve_cache(cache_from_args(args)))
         if rc:
             sys.exit(rc)
@@ -543,6 +610,9 @@ def _dispatch(ap, args):
         if args.inject_bug in model_bugs:
             ap.error(f"--inject-bug {args.inject_bug} is a whole-model "
                      f"bug — it requires --model")
+        if args.inject_bug in list_serve_bugs():
+            ap.error(f"--inject-bug {args.inject_bug} is a serving bug — "
+                     f"it requires --serve")
         if args.bug_layer is not None:
             ap.error("--bug-layer applies to --model (gradient bugs "
                      "localize to a parameter, not a layer)")
@@ -551,10 +621,24 @@ def _dispatch(ap, args):
             sys.exit(rc)
         return
     if args.serve is not None:
-        return check_serve_task(args.serve)
+        if args.case is not None or args.bug is not None:
+            ap.error("--serve and --case/--bug are separate paths")
+        if args.inject_bug in model_bugs:
+            ap.error(f"--inject-bug {args.inject_bug} is a whole-model "
+                     f"bug — it requires --model")
+        if args.inject_bug in list_train_bugs():
+            ap.error(f"--inject-bug {args.inject_bug} is a gradient bug — "
+                     f"it requires --train")
+        if args.bug_layer is not None:
+            ap.error("--bug-layer applies to --model (serving bugs "
+                     "localize to a decode step, not a layer)")
+        rc = _run_serve(args, resolve_cache(cache_from_args(args)))
+        if rc:
+            sys.exit(rc)
+        return
     if args.inject_bug is not None or args.bug_layer is not None:
-        ap.error("--inject-bug/--bug-layer require --model or --train "
-                 "(the case path takes --bug)")
+        ap.error("--inject-bug/--bug-layer require --model, --train or "
+                 "--serve (the case path takes --bug)")
     if args.fn is not None:
         if args.case is not None or args.bug is not None:
             ap.error("--fn and --case/--bug are separate paths")

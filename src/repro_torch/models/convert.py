@@ -15,7 +15,8 @@ layer sits in the JAX tree:
   decoder's layers.
 
 The port keeps the JAX ``(d_in, d_out)`` layout, so no weight is
-transposed.
+transposed. ``to_jax`` goes the other way: the port's parameters in the
+JAX tree's layout, as the checkpoint format writes them.
 """
 from __future__ import annotations
 
@@ -81,3 +82,39 @@ def from_jax(params: dict, cfg: ModelConfig, device=None):
                              f"shape {tuple(p.shape)}")
         p.copy_(t)
     return model
+
+
+def _nest(flat: dict) -> dict:
+    """{"a.b": v} -> {"a": {"b": v}}."""
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = v
+    return out
+
+
+@torch.no_grad()
+def to_jax(model) -> dict:
+    """The model's parameters as the JAX package's tree (detached tensors
+    on the model's device): each layer group stacked along a new axis 0
+    where the JAX family scans it. The inverse of :func:`state_from_jax`."""
+    groups = registry.layer_groups(model.cfg)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    lists = {name for name, _, _ in groups}
+    tree = _nest({n: v for n, v in params.items()
+                  if n.split(".")[0] not in lists})
+    for name, path, layers in groups:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        first = layers if isinstance(layers, int) else layers[0]
+        prefix = f"{name}.{first}."
+        leaves = [n[len(prefix):] for n in params if n.startswith(prefix)]
+        node[path[-1]] = _nest({
+            leaf: params[prefix + leaf] if isinstance(layers, int)
+            else torch.stack([params[f"{name}.{i}.{leaf}"] for i in layers])
+            for leaf in leaves})
+    return tree

@@ -17,8 +17,8 @@ Fault injection (the JAX package's variables):
 """
 from .cache import (CACHE_SCHEMA, DEFAULT_CACHE_DIR, CertificateCache,
                     aval_token, cacheable_report, engine_fingerprint,
-                    obligation_cache_key, resolve_cache, spec_token,
-                    strategy_cache_key)
+                    obligation_cache_key, resolve_cache, serve_cache_key,
+                    spec_token, strategy_cache_key)
 from .pool import (PoolUnavailable, RuntimeTask, SupervisedPool,
                    TaskOutcome, execute_inline, pool_stats, run_tasks,
                    terminate_pool)
@@ -27,7 +27,7 @@ from . import chaos
 __all__ = [
     "CACHE_SCHEMA", "DEFAULT_CACHE_DIR", "CertificateCache", "aval_token",
     "cacheable_report", "engine_fingerprint", "obligation_cache_key",
-    "resolve_cache", "spec_token",
+    "resolve_cache", "serve_cache_key", "spec_token",
     "strategy_cache_key", "PoolUnavailable", "RuntimeTask",
     "SupervisedPool", "TaskOutcome", "execute_inline", "pool_stats",
     "run_tasks", "terminate_pool", "chaos",

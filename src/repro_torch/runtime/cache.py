@@ -92,8 +92,8 @@ def engine_fingerprint() -> str:
     certificate depends on: the engine and capture (``core``), the case
     builders (``dist``), the model configs (``models``), the plans
     (``sharding``), the obligation builders (``modelcheck``,
-    ``gradcheck``, and the JAX package's ``servecheck`` and ``optim``
-    once ported: a missing directory is skipped), the task model
+    ``gradcheck``, ``servecheck``) and the optimizer (``optim``; a
+    missing directory is skipped), the task model
     (``api/spec.py``) and the runner (``api/runner.py``).  Any edit
     invalidates the cache wholesale — the conservative choice; *content*
     keys handle the common fast path of unchanged code + edited task.
@@ -158,6 +158,16 @@ def strategy_cache_key(spec, engine_opts: Optional[dict] = None) -> str:
     ]
     digest = hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
     return f"spec:{spec.name}-{digest}:{_engine_token(engine_opts)}"
+
+
+def serve_cache_key(strategy: str, canonical: str,
+                    engine_opts: Optional[dict] = None) -> str:
+    """Cache key for a servecheck obligation: the strategy name plus the
+    obligation's content digest (``modelcheck.obligations.canonical_key``
+    already hashes mesh + shapes + specs + structure facts, including the
+    position class and any injected bug)."""
+    digest = canonical.rsplit("-", 1)[-1]
+    return f"serve:{strategy}-{digest}:{_engine_token(engine_opts)}"
 
 
 def cacheable_report(value: Any) -> bool:

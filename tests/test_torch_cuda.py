@@ -449,3 +449,136 @@ def test_model_and_train_cli_on_the_card(cuda_device, argv, rc):
     else:
         assert "failing blocks [4]" in r.stdout \
             or "failing parameters ['w2']" in r.stdout
+
+
+# ---------------------------------------------------------------------------
+# serving-path checks and training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv,rc", [
+    (["--serve", "tp_decode"], 0),
+    (["--serve", "tp_decode", "--inject-bug", "stale_cache_shard"], 1)])
+def test_serve_cli_on_the_card(cuda_device, argv, rc):
+    """--serve on the CLI's default device, the card."""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.verify",
+                        *argv], capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=src))
+    assert r.returncode == rc, r.stderr
+    assert ("SERVING-PATH REFINEMENT HOLDS" if rc == 0
+            else "failing steps ['step3']") in r.stdout
+
+
+def _grads(fn, inputs):
+    """(output, gradients of sum(output * w)) for a fixed random w."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*xs)
+    w = torch.randn(out.shape, generator=torch.Generator(
+        device=out.device).manual_seed(7), device=out.device).to(out.dtype)
+    return out, torch.autograd.grad((out.float() * w.float()).sum(), xs)
+
+
+def _rel_rms(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D", [(4, 128), (1024, 768), (4097, 4096)])
+def test_rmsnorm_function_gradients_match_plain(cuda_device, rows, D, dtype):
+    """The kernel under autograd (ops.rmsnorm on tensors that need grad)
+    launches the kernel and gives autograd's gradients of the plain
+    version: fp32 within 1e-5 relative RMS, bf16 within 2e-2."""
+    x, s = _norm_inputs(cuda_device, rows, D, dtype, seed=3)
+    n0 = trn.rmsnorm.launches
+    out, got = _grads(ops.rmsnorm, (x, s))
+    assert trn.rmsnorm.launches == n0 + 1 and out.grad_fn is not None
+    _, want = _grads(trn.rmsnorm_plain, (x, s))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and _rel_rms(g, w) <= tol
+    with torch.no_grad():                    # no autograd: the direct launch
+        assert ops.rmsnorm(x.requires_grad_(True), s).grad_fn is None
+    assert trn.rmsnorm.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 128, 4, 2, 32),
+                                         (1, 256, 12, 12, 64),
+                                         (1, 200, 8, 2, 128)])
+def test_flash_function_gradients_match_plain(cuda_device, dtype, causal, B,
+                                              S, H, KV, hd):
+    """The kernel under autograd gives autograd's gradients of the plain
+    version (GQA, causal or not): fp32 within 1e-5 relative RMS, bf16
+    within 2e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    n0 = ops.launch_counts()["flash_attention"]
+    out, got = _grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=causal), (q, k, v))
+    assert ops.launch_counts()["flash_attention"] == n0 + 1
+    assert out.grad_fn is not None
+    _, want = _grads(lambda q, k, v: tfa.flash_attention_plain(
+        q, k, v, causal=causal), (q, k, v))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for gt, w in zip(got, want):
+        assert gt.shape == w.shape and _rel_rms(gt, w) <= tol
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, no_tf32):
+    """One step of reduced gpt (fp32) on the card and on the CPU from the
+    same weights and batch: the loss, the gradient norm and the updated
+    parameters agree within 1e-4; the step launched both kernels, in the
+    forward only (2 norms a layer + the final one; one attention a
+    layer)."""
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step, trainable
+    cfg = registry.load_config("gpt").reduced()
+    cpu = trainable(registry.init_params(cfg, seed=0, device="cpu"))
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    ds = SyntheticTextDataset(vocab=cfg.vocab, seq_len=64, batch=2)
+    step = make_train_step(cfg)
+    _, _, want = step(cpu, adamw.init(dict(cpu.named_parameters())),
+                      ds.batch_at(0, "cpu"))
+    ops.reset_launch_counts()
+    _, _, got = step(gpu, adamw.init(dict(gpu.named_parameters())),
+                     ds.batch_at(0, cuda_device))
+    counts = ops.launch_counts()
+    assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
+    assert counts["flash_attention_fp32"] == cfg.n_layers
+    assert counts["flash_attention_bf16"] == 0
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                   atol=0)
+    for (n, p), (_, q) in zip(cpu.named_parameters(),
+                              gpu.named_parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-4,
+                                   atol=1e-4, msg=n)
+
+
+@pytest.mark.cuda
+def test_launch_train_on_the_card(cuda_device, tmp_path):
+    """python -m repro_torch.launch.train on its default device, the card,
+    with a checkpoint."""
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        "--steps", "11", "--ckpt", str(tmp_path)],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=src))
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["0", "10"]
+    assert (tmp_path / "ckpt_00000011.msgpack").exists()

@@ -379,13 +379,8 @@ def test_cli_explain_prints_the_frontier(capsys):
 @pytest.mark.parametrize("flag,item", [("--model", 6), ("--train", 7),
                                        ("--serve", 8)])
 def test_cli_unported_paths_name_their_roadmap_items(flag, item, capsys):
-    """--serve (item 8) is still unported and names its item; --model and
-    --train (items 6-7) are ported since and refuse an unknown name with
-    exit 2 instead."""
-    if item == 8:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cli.main([flag, "x", "--device", "cpu"])
-        return
+    """--model, --train and --serve (items 6-8) are all ported: each
+    refuses an unknown name with exit 2, naming no ROADMAP item."""
     with pytest.raises(SystemExit) as e:
         cli.main([flag, "x", "--device", "cpu"])
     assert e.value.code == 2

@@ -458,9 +458,9 @@ def test_cli_list_kind_tags(capsys):
     verify_main(["--list"])
     out = capsys.readouterr().out
     assert "[case]" in out and "[model]" in out and "[train]" in out
+    assert "[serve]" in out and "serve@tp_decode" in out
     assert "train@dp_accum" in out and "accum_no_rescale" in out
     jmain(["--list"])
     ref = capsys.readouterr().out
-    # every case/model/train line of the JAX listing, the serve ones aside
-    assert [ln for ln in out.splitlines()[1:]] == \
-        [ln for ln in ref.splitlines()[1:] if "[serve]" not in ln]
+    # the JAX listing, line for line: cases, models, train and serve tasks
+    assert out.splitlines() == ref.splitlines()

@@ -38,7 +38,14 @@ NEW_MODULES = [
     "repro_torch.modelcheck.schedule", "repro_torch.gradcheck",
     "repro_torch.gradcheck.capture_grad", "repro_torch.gradcheck.transpose",
     "repro_torch.gradcheck.obligations", "repro_torch.gradcheck.report",
-    "repro_torch.gradcheck.schedule",
+    "repro_torch.gradcheck.schedule", "repro_torch.servecheck",
+    "repro_torch.servecheck.relations", "repro_torch.servecheck.obligations",
+    "repro_torch.servecheck.report", "repro_torch.servecheck.schedule",
+    "repro_torch.launch.explain_smoke", "repro_torch.launch.train",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.train", "repro_torch.train.loop",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.checkpoint._msgpack",
 ]
 
 
@@ -108,14 +115,21 @@ def test_wrong_host_bug_raises():
         tapi.verify("tp_layer", bug="rope_offset", device="cpu")
 
 
-def test_unported_task_kinds_name_their_roadmap_items():
-    """Only the serving path is still unported (ROADMAP item 8): its task
-    list, its runner and its CLI flag raise."""
-    for fn in (tapi.list_serve_tasks,
-               lambda: tapi.check_serve_task("serve@tp_decode"),
-               lambda: cli.main(["--serve", "tp_decode"])):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+def test_serve_task_kind_runs(capsys):
+    """The serving path runs: its task list, its runner and its CLI flag,
+    clean and with a localized bug (exit 1)."""
+    assert tapi.list_serve_tasks() == ("serve@tp_decode", "serve@sp_cache",
+                                       "serve@batched_decode")
+    report = tapi.check_serve_task("serve@batched_decode", device="cpu")
+    assert report.ok and (report.total_steps,
+                          report.unique_obligations) == (5, 5)
+    with pytest.raises(KeyError, match="bad serve task"):
+        tapi.check_serve_task("tp_decode")
+    code, out = _main(capsys, "--serve", "tp_decode", "--device", "cpu")
+    assert code == 0 and "SERVING-PATH REFINEMENT HOLDS" in out
+    code, out = _main(capsys, "--serve", "tp_decode", "--inject-bug",
+                      "stale_cache_shard", "--device", "cpu")
+    assert code == 1 and "failing steps ['step3']" in out
 
 
 def test_model_and_train_task_kinds_run(capsys):

@@ -3,6 +3,7 @@ into the port's engine, sharding numpy inputs per rank, evaluating a
 graph's defs, and float32 agreement to an output's scale. Imports neither
 JAX nor the JAX package (the graphs arrive as objects)."""
 import itertools
+import json
 
 import numpy as np
 import torch
@@ -81,3 +82,24 @@ def close_to_scale(got, want, tol=1e-5) -> None:
     assert got.shape == want.shape
     err = np.abs(got - want).max()
     assert err <= tol * max(1.0, np.abs(want).max()), err
+
+
+def stable_report_json(report) -> str:
+    """A ServeReport's (or a TrainReport's) JSON without what depends on
+    time or the worker count: walls, per-phase seconds, pool and runtime
+    records."""
+    d = json.loads(json.dumps(report.to_json()))
+    for k in ("wall_s", "timing", "pool", "workers"):
+        d.pop(k, None)
+    for nested in d["reports"].values():
+        nested.pop("wall_s", None)
+        nested.pop("runtime", None)
+        for k in ("time_s", "phase_s", "counters"):
+            (nested.get("stats") or {}).pop(k, None)
+    return json.dumps(d, sort_keys=True)
+
+
+def report_fires(report) -> dict:
+    """{obligation key: lemma fires} of a report's nested reports."""
+    return {k: (r.get("stats") or {}).get("lemma_fires")
+            for k, r in report.reports.items()}
