@@ -124,6 +124,20 @@ time in each kernel's torch-op backward; launch.train's own main for 20
 steps of the reduced config (float32); then each kernel at these shapes,
 forward and backward, against its plain version and the PyTorch call
 (F.rms_norm, scaled_dot_product_attention) beside its bound.
+Phase 10 runs the launch tooling on a DeviceMesh. (a), right after phase
+3 on phase 2's model: yi-9b at full width and depth with its parameters
+as DTensors on a real (1, 1) ("data", "model") mesh over a one-rank NCCL
+group, under use_sharding, for the 4 x 256 and 1 x 4096 prefills; the
+logits must equal phase 2's (the max abs difference is printed, expected
+0; fails above MESH_REL_RMS relative RMS), with RMSNorm 97 and bf16
+attention 48 launches a forward through the kernels' custom ops, and the
+sharded and unsharded prefill ms are printed. (b), last: the dry run
+(repro_torch.launch.dryrun) on fake CUDA tensors over the fake 256-rank
+mesh for DRYRUN_COMBOS (each family and input mode; the JAX package's
+skip_reason skips none) and the 512-rank mesh for gpt and yi-9b prefill:
+each combo's FLOPs, bytes (an unfused upper bound) and collective bytes a
+device, dominant roofline term, GiB a device, fits_hbm and trace seconds,
+with no kernel launched and no exception.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
@@ -185,6 +199,22 @@ ROUNDS_APART = ("ssm", "hybrid")
 SEQ_VS_PAR_REL_RMS_FP32 = 1e-3
 SEQ_VS_PAR_BF16_GAP = {"mamba2-1.3b": 1.5 * 0.3629,
                        "recurrentgemma-2b": 1.5 * 0.06077}
+
+# Phase 10: the sharded yi-9b's logits against the unsharded ones (the same
+# kernels on the same data: expected equal; bf16's 2^-8 with headroom) and
+# the dry run's combos (arch, input shape, multi-pod): each family and mode
+DRYRUN_COMBOS = (
+    ("yi-9b", "train_4k", False), ("yi-9b", "prefill_32k", False),
+    ("yi-9b", "decode_32k", False), ("gemma3-12b", "decode_32k", False),
+    ("gemma3-12b", "long_500k", False), ("mixtral-8x7b", "decode_32k", False),
+    ("kimi-k2-1t-a32b", "prefill_32k", False),
+    ("mamba2-1.3b", "prefill_32k", False), ("mamba2-1.3b", "long_500k", False),
+    ("recurrentgemma-2b", "prefill_32k", False),
+    ("recurrentgemma-2b", "long_500k", False),
+    ("qwen2-vl-2b", "prefill_32k", False), ("whisper-medium", "decode_32k", False),
+    ("command-r-35b", "decode_32k", False), ("gemma3-27b", "decode_32k", False),
+    ("gpt", "prefill_32k", True), ("yi-9b", "prefill_32k", True))
+MESH_REL_RMS = 1e-2
 
 # The families (phase 6) and their kernel shapes (phase 1)
 FAMILY_ARCHS = ("mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -637,7 +667,8 @@ def phase2():
           f"{N_LAYERS} layers")
     check(counts["flash_attention_fp32"] == 0,
           "the float32 attention route ran on the bf16 main path")
-    return counts, row_launches, model, prompts, long_prompt
+    return counts, row_launches, model, prompts, long_prompt, \
+        (logits, long_logits)
 
 
 @contextlib.contextmanager
@@ -1974,6 +2005,133 @@ def phase9_train(peaks, smi):
     return dict(gpt=gpt, grads=grads, yi=yi, cli=cli, records=records)
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase10_mesh(model, prompts, long_prompt, want, smi):
+    """(a) yi-9b (phase 2's model, full width and depth, bf16) on a real
+    (1, 1) ("data", "model") mesh over a one-rank NCCL group: its
+    parameters become DTensors (in place, sharing storage), the prompts
+    batch-sharded, both prefills run under use_sharding. The logits must
+    equal phase 2's unsharded ones (printed: the max abs difference; fails
+    above MESH_REL_RMS relative RMS) with K1 97 and K2 48 launches a
+    forward, through the kernels' custom ops; the sharded and unsharded
+    prefill ms (their difference is DTensor's host cost) are printed."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, rules_for_config
+    from repro_torch.sharding.specs import (distribute, distribute_params,
+                                            placements_for, use_sharding)
+    from repro_torch.train import serve
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+
+    def best_ms(fn, n=3):
+        out, ts = None, []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return out, min(ts)
+
+    shapes = {"4x256": prompts, "1x4096": long_prompt}
+    plain_ms = {k: best_ms(lambda t=t: serve.prefill_logits(
+        model, {"tokens": t}))[1] for k, t in shapes.items()}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        rules = rules_for_config(cfg, mesh)
+        distribute_params(model, mesh, rules)
+        pl = placements_for(mesh, rules.spec_for(("batch", None)))
+
+        def run(t):
+            with use_sharding(mesh, rules):
+                return serve.prefill_logits(
+                    model, {"tokens": distribute(t, mesh, pl)})
+
+        run(prompts)   # DTensor's sharding caches, outside the count
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        # --- the main path: every launch from here to the read is counted
+        got = {k: run(t) for k, t in shapes.items()}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        # ------------------------------------------------------------------
+        mesh_ms = {k: best_ms(lambda t=t: run(t))[1]
+                   for k, t in shapes.items()}
+        out = dict(card=smi, launches=counts, prefill_ms=mesh_ms,
+                   unsharded_prefill_ms=plain_ms,
+                   dtensor_host_ms={k: mesh_ms[k] - plain_ms[k]
+                                    for k in shapes})
+        for (k, g), w in zip(got.items(), want):
+            check(type(g).__name__ == "DTensor", f"{k}: logits not a DTensor")
+            g = g.full_tensor()
+            check(g.shape == w.shape, f"{k}: sharded logits shape")
+            diff = (g.float() - w.float())
+            out[f"max_abs_diff_{k}"] = diff.abs().max().item()
+            out[f"rel_rms_{k}"] = (diff.norm() / w.float().norm()).item()
+            check(out[f"rel_rms_{k}"] <= MESH_REL_RMS,
+                  f"{k}: sharded logits differ from phase 2's")
+    finally:
+        dist.destroy_process_group()
+    out["phase10a_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] {json.dumps(out)}")
+    check(counts["rmsnorm"] == 2 * N_NORMS,
+          f"rmsnorm launched {counts['rmsnorm']} times on the sharded path, "
+          f"not 2 x {N_NORMS}")
+    check(counts["flash_attention_bf16"] == 2 * N_LAYERS,
+          f"the bf16 attention route launched "
+          f"{counts['flash_attention_bf16']} times, not 2 x {N_LAYERS}")
+    check(counts["flash_attention_fp32"] == 0,
+          "the float32 attention route ran on the sharded bf16 path")
+    return out
+
+
+def phase10_dryrun(smi):
+    """(b) the dry run on fake CUDA tensors over the fake 256-rank (and
+    512-rank) mesh: DRYRUN_COMBOS, each family and mode at least once
+    (the whole sweep is ``python -m repro_torch.launch.dryrun``), none
+    that the JAX package's skip_reason skips. Any exception fails, and
+    so does a kernel launch."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    outdir = str(ROOT / "experiments" / "dryrun_torch")
+    t_phase = time.perf_counter()
+    try:
+        for arch, shape, multi_pod in DRYRUN_COMBOS:
+            ops.reset_launch_counts()
+            rec = dryrun.run_combo(arch, shape, multi_pod, outdir,
+                                   device="cuda")
+            launches = ops.launch_counts()
+            check("skipped" not in rec, f"{arch} {shape}: skipped")
+            check(all(n == 0 for n in launches.values()),
+                  f"{arch} {shape}: the dry run launched {launches}")
+            full, roof = rec["full_compile"], rec["roofline"]
+            print(f"[dryrun] {json.dumps(dict(
+                arch=arch, shape=shape, mesh=rec['mesh'],
+                ranks=rec['n_chips'], flops_per_dev=full['flops'],
+                bytes_per_dev_unfused=full['bytes_accessed'],
+                coll_per_dev=sum(full['collective_bytes'].values()),
+                collective_bytes=full['collective_bytes'],
+                dominant=roof['dominant'],
+                gib_per_dev=roof['mem_per_device_gib'],
+                fits_hbm=roof['fits_hbm'], trace_s=full['t_trace_s'],
+                launches=sum(launches.values()), card=smi))}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[dryrun] phase 10b: {len(DRYRUN_COMBOS)} combos in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1986,9 +2144,10 @@ def main():
           f"{peaks[1] / 1e12} TFLOP/s bf16, {peaks[2] / 1e12} TFLOP/s fp32")
     records = phase1(peaks)
     model_check_small()
-    counts, row_launches, model, prompts, long_prompt = phase2()
+    counts, row_launches, model, prompts, long_prompt, logits = phase2()
     phase3(model, prompts, long_prompt)
-    del model
+    mesh_run = phase10_mesh(model, prompts, long_prompt, logits, smi)
+    del model, logits
     torch.cuda.empty_cache()
     phase3_windowed()
     families = phase6_families()
@@ -1997,6 +2156,7 @@ def main():
     phase5_runtime(inproc, inproc_s, smi)
     phase7_checks(smi)
     phase8_serve(smi)
+    phase10_dryrun(smi)
 
     # each kernel's record at the main path's shapes (the float32 route at
     # the same shape in float32: it is not on the bf16 main path)
@@ -2086,6 +2246,28 @@ def main():
                                     "bound_ms", "bound_by", "library_ms",
                                     "backward_ms", "library_backward_ms",
                                     "backward_bound_ms", "shape")},
+            card=smi))
+    # each kernel on phase 10's sharded path (DTensor parameters on a
+    # (1, 1) mesh), at the 4 x 256 prefill's shapes
+    for name, src, rec, launches in (
+            ("rmsnorm@mesh_1x1", "rmsnorm.cu", next(
+                r for r in records if r["kernel"] == "rmsnorm"
+                and r["shape"] == [B_PROMPT * S_PROMPT, D_MODEL]
+                and r["dtype"] == "torch.bfloat16"),
+             mesh_run["launches"]["rmsnorm"]),
+            ("flash_attention_bf16@mesh_1x1", f"{BF16_LIB}.cu", next(
+                r for r in records if r["kernel"] == "flash_attention_bf16"
+                and r["dtype"] == "torch.bfloat16"
+                and all(r.get(k) == v for k, v in attn.items())),
+             mesh_run["launches"]["flash_attention_bf16"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces="src/repro/kernels/rmsnorm.py:21"
+            if rec["kernel"] == "rmsnorm" else fa_src,
+            launches=launches, path="mesh",
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "shape")},
             card=smi))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,7 @@ from torch.fx import traceback as fx_traceback
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
 
-from ..models.registry import resolve_device
+from ..device import resolve_device
 from ..obs import trace as obs_trace
 from . import spmd
 from . import terms as T

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.registry import resolve_device
+from ..device import resolve_device
 from .terms import Term, eval_term, pretty
 
 SCHEMA = 1

@@ -27,7 +27,7 @@ import contextlib
 import inspect
 from typing import Callable, Iterator, Optional, Sequence
 
-from ..models.registry import resolve_device
+from ..device import resolve_device
 from .capture import (SUPPORTED_PRIMITIVES, CaptureError, Graph,
                       SpmdCapture, _NODE_HOOKS, op_name, source_location)
 from .capture import capture as _capture

@@ -57,3 +57,10 @@ class SyntheticTextDataset:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_specs(cfg, shape, abstract=True):
+    """Meta-device batch stand-ins for (cfg, InputShape) — see
+    launch.inputs."""
+    from ..launch.inputs import input_specs
+    return input_specs(cfg, shape)

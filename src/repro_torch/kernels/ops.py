@@ -8,11 +8,31 @@ forward launches the same kernel; every other call launches it directly,
 without autograd's host cost. Each kernel wrapper counts its launches
 (``launch_counts``), on both branches: RMSNorm in all and per launch plan
 (``rmsnorm_rows``, ``rmsnorm_ring``); attention per route (bf16 on tensor
-cores, fp32 scalar), with ``flash_attention`` their sum."""
+cores, fp32 scalar), with ``flash_attention`` their sum.
+
+A DTensor (a parameter or activation on a ``DeviceMesh``) or a fake tensor
+(the dry run's ``FakeTensorMode``) takes neither branch: it goes through
+the kernel's custom op, ``repro_torch::rmsnorm`` or
+``repro_torch::flash_attention``. Each op has a fake implementation
+(shapes and dtypes only: under the fake mode nothing launches), an
+autograd formula (the kernel's ``*_backward``), a DTensor sharding rule
+(K1: any dim but the last sharded; K2: batch, or heads where q's and
+k/v's head shards line up) and a FLOP formula (the kernel's own
+arithmetic, for ``torch.utils.flop_counter``). Its real implementation is
+the dispatch above on the local shard, so on a real mesh the shard
+reaches the same hand-written kernel. K2's GQA case where k/v's heads are
+replicated while q's are sharded (KV not divisible by the mesh axis) runs
+the kernel on each rank's q heads and the KV heads they read, sliced by
+the rank's mesh coordinate (``sharding.specs.heads_local``)."""
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
+
+from ..sharding.specs import heads_local, is_dtensor
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
 
@@ -33,7 +53,12 @@ def _recorded(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def _wrapped(t) -> bool:
+    """A DTensor or a fake tensor: the custom op's business."""
+    return isinstance(t, FakeTensor) or is_dtensor(t)
+
+
+def _rmsnorm_direct(x, scale, eps):
     if _route(x, "rmsnorm"):
         if _recorded(x, scale):
             return _rn.RMSNormFunction.apply(x, scale, eps)
@@ -41,13 +66,173 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _rn.rmsnorm_plain(x, scale, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
+def _flash_direct(q, k, v, causal):
     if _route(q, "flash_attention"):
         if _recorded(q, k, v):
             return _fa.FlashAttentionFunction.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal=causal)
     return _fa.flash_attention_plain(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# The custom ops: what a DTensor or a fake tensor reaches
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    # autograd is the op's own (register_autograd), so the kernel is
+    # launched directly here; the output is contiguous, as the fake one
+    with torch.no_grad():
+        return _rmsnorm_direct(x, scale, eps).contiguous()
+
+
+@rmsnorm_op.register_fake
+def _(x, scale, eps):
+    return x.new_empty(x.shape)
+
+
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, eps = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps = eps
+
+
+def _rmsnorm_bwd(ctx, dy):
+    x, scale = ctx.saved_tensors
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        # per rank on its rows, as the forward's rule placed them (shards
+        # may be uneven: the global shapes are given); the scale's
+        # gradient summed over the rows' shards
+        mesh = x.device_mesh
+        pl = tuple(p if p.is_shard() and p.dim < x.ndim - 1 else Replicate()
+                   for p in x.placements)
+        x, dy = x.redistribute(mesh, pl), dy.redistribute(mesh, pl)
+        scale = scale.redistribute(mesh, (Replicate(),) * mesh.ndim)
+        dxl, dsl = _rn.rmsnorm_backward(x.to_local(), scale.to_local(),
+                                        dy.to_local(), ctx.eps)
+        dx = DTensor.from_local(dxl, mesh, pl, run_check=False,
+                                shape=x.shape, stride=x.stride())
+        dscale = DTensor.from_local(
+            dsl, mesh, [Partial() if p.is_shard() else p for p in pl],
+            run_check=False, shape=scale.shape, stride=scale.stride())
+        return dx, dscale, None
+    dx, dscale = _rn.rmsnorm_backward(x, scale, dy, ctx.eps)
+    return dx, dscale, None
+
+
+rmsnorm_op.register_autograd(_rmsnorm_bwd, setup_context=_rmsnorm_setup)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool) -> torch.Tensor:
+    with torch.no_grad():
+        return _flash_direct(q, k, v, causal).contiguous()
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal = causal
+
+
+def _flash_bwd(ctx, dy):
+    q, k, v = ctx.saved_tensors
+    if is_dtensor(q):
+        from torch.distributed.tensor.experimental import local_map
+        # q, k, v and the output share their placements (the sharding
+        # rule's strategies): each rank's backward is its shard's
+        pl = q.placements
+        return (*local_map(
+            _fa.flash_attention_backward, out_placements=(pl, pl, pl),
+            in_placements=(pl, pl, pl, pl, None), device_mesh=q.device_mesh,
+            redistribute_inputs=True)(q, k, v, dy, ctx.causal), None)
+    return (*_fa.flash_attention_backward(q, k, v, dy, ctx.causal), None)
+
+
+flash_attention_op.register_autograd(_flash_bwd, setup_context=_flash_setup)
+
+
+@functools.cache
+def _register_sharding_rules() -> None:
+    """The custom ops' DTensor rules, registered when a DTensor first
+    reaches them (DTensor's import is deferred: see sharding/specs.py).
+    K1: rows are independent, so any dim but the normalized last one may
+    be sharded, the scale replicated. K2: batch (dim 0) or heads (dim 2)
+    of q, k and v together; heads are only right where each rank's KV
+    heads are the groups of its q heads, and ``flash_attention`` takes the
+    other GQA case to ``heads_local``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.rmsnorm.default)
+    def _rmsnorm_sharding(x, scale, eps):
+        out = [([Replicate()], [Replicate(), Replicate(), None])]
+        out += [([Shard(d)], [Shard(d), Replicate(), None])
+                for d in range(len(x.shape) - 1)]
+        return out
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _flash_sharding(q, k, v, causal):
+        return [([Replicate()], [Replicate()] * 3 + [None]),
+                ([Shard(0)], [Shard(0)] * 3 + [None]),
+                ([Shard(2)], [Shard(2)] * 3 + [None])]
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm)
+def _rmsnorm_flop(x_shape, scale_shape, eps, *args, out_shape=None,
+                  **kwargs) -> int:
+    """Square, sum, scale and the two products: 4 operations an element
+    (as the bound of ``chip_smoke.py`` counts them)."""
+    n = 1
+    for d in x_shape:
+        n *= d
+    return 4 * n
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flop(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+                **kwargs) -> int:
+    """Two products of 2 operations a multiply-add over the (query, key)
+    pairs the kernel visits: all S*S, or the S*(S+1)/2 on and below the
+    diagonal when causal."""
+    B, S, H, hd = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * k_shape[1]
+    return 4 * B * H * hd * pairs
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    if _wrapped(x):
+        if is_dtensor(x):
+            _register_sharding_rules()
+        return rmsnorm_op(x, scale, eps)
+    return _rmsnorm_direct(x, scale, eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
+    if is_dtensor(q):
+        _register_sharding_rules()
+        heads = 1
+        for i, p in enumerate(q.placements):
+            if p.is_shard(2):
+                heads *= q.device_mesh.size(i)
+        if k.shape[2] % heads:
+            # KV heads replicated where q's are sharded: each rank's q heads
+            # against the KV heads they read
+            return heads_local(lambda ql, kl, vl: flash_attention_op(
+                ql, kl, vl, causal), q, k, v)
+        return flash_attention_op(q, k, v, causal)
+    if _wrapped(q):
+        return flash_attention_op(q, k, v, causal)
+    return _flash_direct(q, k, v, causal)
 
 
 def launch_counts() -> dict:

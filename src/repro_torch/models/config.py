@@ -115,3 +115,20 @@ class ModelConfig:
         )
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """An assigned (seq_len, global_batch, mode) input shape."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str      # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -59,7 +59,8 @@ def _apply_block(p, cfg, x, positions, angles, role):
                         positions, causal=True,
                         window=_role_window(cfg, role), angles=angles)
     x = x + h
-    return x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps)), kv
+    x = x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    return L.constrain(x, ("batch", "seq", "embed")), kv
 
 
 def forward(model, tokens, positions=None, patch_embeds=None,
@@ -86,8 +87,8 @@ def forward(model, tokens, positions=None, patch_embeds=None,
                                cfg.rope_theta)
     kvs = []
     for layer, blk in enumerate(model.blocks):
-        x, kv = _apply_block(blk, cfg, x, positions, angles,
-                             layer_role(cfg, layer))
+        x, kv = L.remat_call(cfg, _apply_block, blk, cfg, x, positions,
+                             angles, layer_role(cfg, layer))
         kvs.append(kv)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     kvs = kvs if collect_kv else None

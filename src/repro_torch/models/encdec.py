@@ -67,6 +67,7 @@ def encode(model, frames):
                            causal=False)
         x = x + h
         x = x + L.mlp(blk.mlp, L.rmsnorm(x, blk.pre_mlp, cfg.norm_eps))
+        x = L.constrain(x, ("batch", "seq", "embed"))
     return L.rmsnorm(x, model.enc_norm, cfg.norm_eps)
 
 
@@ -79,7 +80,8 @@ def _dec_block(p, cfg, x, enc, positions):
                        L.rmsnorm(x, p.pre_cross, cfg.norm_eps),
                        positions, causal=False, kv_override=enc)
     x = x + h
-    return x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    x = x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    return L.constrain(x, ("batch", "seq", "embed"))
 
 
 def forward(model, tokens, frames, positions=None, return_hidden=False):
@@ -89,10 +91,10 @@ def forward(model, tokens, frames, positions=None, return_hidden=False):
     cfg = model.cfg
     B, S = tokens.shape
     enc = encode(model, frames)
-    x = model.embed[tokens].to(cfg.torch_dtype)
+    x = L.take_rows(model.embed, tokens).to(cfg.torch_dtype)
     x = x + sinusoid(S, cfg.d_model, cfg.torch_dtype, x.device)[None]
     for blk in model.dec_blocks:
-        x = _dec_block(blk, cfg, x, enc, positions)
+        x = L.remat_call(cfg, _dec_block, blk, cfg, x, enc, positions)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x, None
@@ -134,7 +136,7 @@ def build_cross_cache(model, enc) -> list:
 def decode_step(model, cache: dict, token, pos: int):
     cfg = model.cfg
     B = token.shape[0]
-    x = model.embed[token].to(cfg.torch_dtype)
+    x = L.take_rows(model.embed, token).to(cfg.torch_dtype)
     max_seq = cache["self"][0][0].shape[1]
     x = x + sinusoid(max_seq, cfg.d_model, cfg.torch_dtype,
                      x.device)[pos][None, None]
@@ -153,7 +155,7 @@ def decode_step(model, cache: dict, token, pos: int):
         q = (h @ p.wq).reshape(B, 1, cfg.n_heads, cfg.hd)
         if cfg.use_bias:
             q = q + p.bq.reshape(1, 1, cfg.n_heads, cfg.hd)
-        ones = torch.ones((B, 1, 1, ck.shape[1]), dtype=torch.bool,
+        ones = torch.ones((1, 1, 1, ck.shape[1]), dtype=torch.bool,
                           device=x.device)
         y = L.gqa_attend(q, ck, cv, ones) @ p.wo
         if cfg.use_bias:

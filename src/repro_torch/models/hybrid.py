@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import local_region
 from .config import ModelConfig
 from . import dense, layers as L
 
@@ -81,11 +82,21 @@ def rglru_scan(a, bx):
     return b.to(dt)
 
 
+# on a mesh: per batch row and channel on local shards (the scan's and
+# the conv's sequence shifts have no DTensor rule in every torch version)
+_conv_region = local_region(
+    L.causal_conv, in_axes=(("batch", None, "act_ff"), ("conv", "ff"), ("ff",)),
+    out_axes=("batch", None, "act_ff"))
+_scan_region = local_region(
+    rglru_scan, in_axes=(("batch", None, "act_ff"),) * 2,
+    out_axes=("batch", None, "act_ff"))
+
+
 def rglru_block(p, cfg: ModelConfig, x, state=None, conv_state=None,
                 decode=False):
     """Returns (y, new_state, new_conv_state); new_conv_state is None in
     prefill."""
-    h = L.rmsnorm(x, p.norm, cfg.norm_eps)
+    h = L.seq_gathered(L.rmsnorm(x, p.norm, cfg.norm_eps))
     gate = F.gelu(h @ p.in_gate, approximate="tanh")   # jax.nn.gelu's default
     u = h @ p.in_x
     # causal depthwise conv (window 4)
@@ -94,11 +105,7 @@ def rglru_block(p, cfg: ModelConfig, x, state=None, conv_state=None,
         u = torch.einsum("bkc,kc->bc", win, p.conv_w)[:, None] + p.conv_b
         new_conv = win[:, 1:]
     else:
-        K = p.conv_w.shape[0]
-        acc = u * p.conv_w[K - 1]
-        for k in range(1, K):
-            acc = acc + F.pad(u, (0, 0, k, 0))[:, :-k] * p.conv_w[K - 1 - k]
-        u = acc + p.conv_b
+        u = _conv_region(u, p.conv_w, p.conv_b)
         new_conv = None
     # RG-LRU
     i_t = torch.sigmoid(u @ p.w_input_gate)
@@ -111,9 +118,10 @@ def rglru_block(p, cfg: ModelConfig, x, state=None, conv_state=None,
         new_state = (a_t[:, 0] * state + bx[:, 0]).float()
         hidden = new_state[:, None]
     else:
-        hidden = rglru_scan(a_t, bx)
+        hidden = _scan_region(a_t, bx)
         new_state = hidden[:, -1].float()
-    y = ((hidden * gate) @ p.out.to(hidden.dtype)).to(x.dtype)
+    y = L.residual_branch(((hidden * gate) @ p.out.to(hidden.dtype))
+                          .to(x.dtype))
     return y, new_state, new_conv
 
 
@@ -127,7 +135,8 @@ def _apply_block(p, cfg, x, role, positions, angles):
                            positions, causal=True, window=cfg.window,
                            angles=angles)
         x = x + h
-    return x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    x = x + L.mlp(p.mlp, L.rmsnorm(x, p.pre_mlp, cfg.norm_eps))
+    return L.constrain(x, ("batch", "seq", "embed"))
 
 
 def forward(model, tokens, positions=None, return_hidden=False):
@@ -139,8 +148,8 @@ def forward(model, tokens, positions=None, return_hidden=False):
         else positions
     angles = L.rope_angles(pos[None].expand(B, S), cfg.hd, cfg.rope_theta)
     for layer, blk in enumerate(model.blocks):
-        x = _apply_block(blk, cfg, x, dense.layer_role(cfg, layer),
-                         positions, angles)
+        x = L.remat_call(cfg, _apply_block, blk, cfg, x,
+                         dense.layer_role(cfg, layer), positions, angles)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x, None

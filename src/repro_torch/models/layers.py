@@ -10,6 +10,12 @@ RMSNorm always goes through the RMSNorm kernel's dispatch
 (``kernels.ops.rmsnorm``); attention goes through the flash-attention
 kernel's dispatch where the kernel's semantics hold (see ``attention``).
 On a CPU tensor both dispatch to the plain version.
+
+``constrain`` marks the JAX package's sharding constraints, with the same
+logical axes at the same places: under an active mesh
+(``sharding.specs.use_sharding``) with DTensor parameters each is a
+redistribute, and otherwise the identity. ``remat_call`` is the JAX
+package's per-block ``jax.checkpoint`` when ``cfg.remat`` is set.
 """
 from __future__ import annotations
 
@@ -21,7 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..kernels import ops
+from ..sharding.specs import (active_mesh, active_rules, constrain,
+                              heads_local, is_dtensor, use_sharding)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -137,6 +147,16 @@ def rmsnorm(x, scale, eps):
     return ops.rmsnorm(x, scale, eps)
 
 
+def causal_conv(x, w, b):
+    """Depthwise causal conv of width K as K shifted adds: x (B, S, C),
+    w (K, C), b (C,)."""
+    K = w.shape[0]
+    acc = x * w[K - 1]
+    for k in range(1, K):
+        acc = acc + F.pad(x, (0, 0, k, 0))[:, :-k] * w[K - 1 - k]
+    return acc + b
+
+
 def norm_spec(d: int) -> Leaf:
     return Leaf((d,), ("embed",), scale=0.0)
 
@@ -214,7 +234,16 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd), mask broadcastable (B,1,Sq,Sk).
 
     Scores in the input dtype, softmax in fp32, weights cast back to v's
-    dtype before the value product, as the JAX package does."""
+    dtype before the value product, as the JAX package does. On a mesh,
+    on local shards: each rank's q heads against the KV heads they read
+    (``sharding.specs.heads_local``)."""
+    if is_dtensor(q):
+        return heads_local(lambda ql, kl, vl, m: _gqa_attend(
+            ql, kl, vl, m, softcap), q, k, v, mask)
+    return _gqa_attend(q, k, v, mask, softcap)
+
+
+def _gqa_attend(q, k, v, mask, softcap: float = 0.0):
     B, Sq, H, hd = q.shape
     G = H // k.shape[2]
     if G > 1:
@@ -225,6 +254,7 @@ def gqa_attend(q, k, v, mask, softcap: float = 0.0):
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     scores = torch.where(mask, scores, NEG_INF)
+    scores = constrain(scores, ("batch", "act_heads", None, None))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
     return out.reshape(B, Sq, H * hd)
@@ -266,6 +296,22 @@ def plain_attention(q, k, v, q_pos, k_pos, *, causal, window, softcap):
     return gqa_attend(q, k, v, m, softcap)
 
 
+def seq_gathered(x):
+    """The sequence-parallel all-gather at a block's entry, on a mesh whose
+    rules shard the residual's seq (``REPRO_SP_RESIDUAL``): DTensor's
+    product rule takes a batch-sharded input, not one sharded on seq as
+    well. The identity without a mesh."""
+    return constrain(x, ("batch", None, "embed"))
+
+
+def heads_proj(x, w, heads: str):
+    """``x @ w`` of a (.., heads * hd) projection, on a mesh placed by the
+    ``heads`` rule (whole heads or none on a rank): DTensor's product rule
+    may otherwise cut the fused dim where its split into heads cannot
+    follow. The product itself without a mesh."""
+    return constrain(x @ w, ("batch", None, heads))
+
+
 def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
               window=0, kv_override=None, angles=None):
     """Full-sequence attention (prefill). ``positions`` None means
@@ -278,19 +324,23 @@ def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
     other layer keeps the plain path, as the JAX package keeps XLA."""
     B, S, D = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq).reshape(B, S, h, hd)
+    x = seq_gathered(x)
+    q = heads_proj(x, p.wq, "act_heads").reshape(B, S, h, hd)
     if cfg.use_bias:
         q = q + p.bq.reshape(1, 1, h, hd)
-    ksrc = x if kv_override is None else kv_override
+    ksrc = x if kv_override is None else seq_gathered(kv_override)
     Sk = ksrc.shape[1]
-    k = (ksrc @ p.wk).reshape(B, Sk, kv, hd)
-    v = (ksrc @ p.wv).reshape(B, Sk, kv, hd)
+    k = heads_proj(ksrc, p.wk, "kv_heads").reshape(B, Sk, kv, hd)
+    v = heads_proj(ksrc, p.wv, "kv_heads").reshape(B, Sk, kv, hd)
     if cfg.use_bias:
         v = v + p.bv.reshape(1, 1, kv, hd)
     if angles is not None:
         q = apply_rope(q, angles)
         if kv_override is None:
             k = apply_rope(k, angles)
+    # inside the block, seq is gathered (SP boundary is the residual)
+    q = constrain(q, ("batch", None, "act_heads", None))
+    k = constrain(k, ("batch", None, None, None))
     if not window and not cfg.logit_softcap and kv_override is None \
             and positions is None:
         y = ops.flash_attention(q, k, v, causal=causal).reshape(B, S, h * hd)
@@ -304,7 +354,7 @@ def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
     y = y @ p.wo
     if cfg.use_bias:
         y = y + p.bo
-    return y, (k, v)
+    return constrain(y, ("batch", "seq", "embed")), (k, v)
 
 
 def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
@@ -321,11 +371,11 @@ def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, *,
     assert S1 == 1
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     C = cache_k.shape[1]
-    q = (x @ p.wq).reshape(B, 1, h, hd)
+    q = heads_proj(x, p.wq, "act_heads").reshape(B, 1, h, hd)
     if cfg.use_bias:
         q = q + p.bq.reshape(1, 1, h, hd)
-    k_new = (x @ p.wk).reshape(B, 1, kv, hd)
-    v_new = (x @ p.wv).reshape(B, 1, kv, hd)
+    k_new = heads_proj(x, p.wk, "kv_heads").reshape(B, 1, kv, hd)
+    v_new = heads_proj(x, p.wv, "kv_heads").reshape(B, 1, kv, hd)
     if cfg.use_bias:
         v_new = v_new + p.bv.reshape(1, 1, kv, hd)
     if rope:
@@ -371,17 +421,29 @@ def mlp_spec(cfg: ModelConfig, geglu: bool = True) -> dict:
     return spec
 
 
+def residual_branch(y):
+    """A block branch's output placed as the residual it joins: a mesh's
+    row-parallel product leaves a partial sum, reduced here rather than
+    inside the residual add, whose gradient would otherwise come back
+    sharded as the residual is. The identity without a mesh."""
+    return constrain(y, ("batch", "seq", "embed"))
+
+
 def mlp(p, x):
+    x = seq_gathered(x)
     if hasattr(p, "wg"):
-        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+        h = F.silu(x @ p.wg) * (x @ p.wu)
+        return residual_branch(constrain(h, ("batch", None, "act_ff"))
+                               @ p.wd)
     h = x @ p.w1
     if hasattr(p, "b1"):
         h = h + p.b1
     h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    h = constrain(h, ("batch", None, "act_ff"))
     y = h @ p.w2
     if hasattr(p, "b2"):
         y = y + p.b2
-    return y
+    return residual_branch(y)
 
 
 # ---------------------------------------------------------------------------
@@ -396,13 +458,41 @@ def embed_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def take_rows(table, tokens):
+    """``table[tokens]``; on a mesh ``F.embedding``, whose DTensor rule
+    gathers from a vocab-sharded table without gathering the table."""
+    if active_mesh() is not None:
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
 def embed(p, cfg: ModelConfig, tokens):
-    x = p.embed[tokens].to(cfg.torch_dtype)
+    x = take_rows(p.embed, tokens).to(cfg.torch_dtype)
     if cfg.family in ("dense", "moe", "vlm"):
         x = x * math.sqrt(cfg.d_model)  # gemma-style scaling
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def unembed(p, cfg: ModelConfig, x):
     w = p.embed.T if cfg.tie_embeddings else p.unembed
-    return x @ w.to(cfg.torch_dtype)
+    # vocab-parallel logits; seq explicitly gathered
+    return constrain(x @ w.to(cfg.torch_dtype), ("batch", None, "vocab"))
+
+
+def remat_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``:
+    the block's activations are recomputed in the backward instead of
+    kept (the JAX package's per-block ``jax.checkpoint``)."""
+    if not cfg.remat:
+        return fn(*args)
+    mesh, rules = active_mesh(), active_rules()
+    if mesh is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def block(*a):
+        # the recompute runs in the backward, on autograd's device thread
+        # for CUDA tensors, where this thread's sharding context is unset
+        with use_sharding(mesh, rules):
+            return fn(*a)
+
+    return checkpoint(block, *args, use_reentrant=False)

@@ -12,6 +12,13 @@ is. Decode runs the same ``moe_mlp`` with T = B tokens, so a decode step
 can drop rows too.
 
 The auxiliary load-balance loss is returned beside the output.
+
+On a mesh (DTensor activations under ``use_sharding``) the block runs on
+local shards (``_moe_mlp_mesh``): every rank routes all the tokens, so
+capacities and drops are the unsharded model's, and runs the experts its
+mesh coordinate holds, on the ``constrain`` placements of the JAX package
+(experts over their mesh axis); the partial outputs are summed by the
+redistribute back to the residual's placements.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-
+from ..sharding.specs import (active_mesh, active_rules, is_dtensor,
+                              placements_for)
 from .config import ModelConfig
 from . import dense, layers as L
 
@@ -76,7 +84,8 @@ def route(router, cfg: ModelConfig, xt):
     flat_t = torch.arange(T, device=xt.device).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], gates.reshape(T * K)[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * K, device=xt.device) - offsets[se]
     C = capacity(cfg, T)
@@ -88,26 +97,39 @@ def route(router, cfg: ModelConfig, xt):
 
 def moe_mlp(p, cfg: ModelConfig, x):
     """x: (B, S, D) -> (y, aux_loss)."""
+    if active_mesh() is not None and is_dtensor(x):
+        return _moe_mlp_mesh(p, cfg, x)
+    return _moe_experts(cfg, x, p.router, p.wg, p.wu, p.wd, 0)
+
+
+def _moe_experts(cfg: ModelConfig, x, router, wg, wu, wd, e0: int):
+    """``moe_mlp`` over experts e0 .. e0 + len(wg) of the routing of all of
+    x's tokens; the other experts' rows contribute nothing to y."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
+    El = wg.shape[0]
     xt = x.reshape(T, D)
-    r = route(p.router, cfg, xt)
+    r = route(router, cfg, xt)
     C, keep, slot, st = r["C"], r["keep"], r["slot"], r["st"]
+    local = keep & (r["se"] >= e0) & (r["se"] < e0 + El)
+    slot = torch.where(local, slot - e0 * C, El * C)
 
-    # pack: dropped rows all land in the overflow row E*C, which is cut off
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    # pack: dropped rows all land in the overflow row El*C, which is cut off
+    buf = torch.zeros((El * C + 1, D), dtype=x.dtype, device=x.device)
     buf[slot] = xt[st]
-    buf = buf[:-1].reshape(E, C, D)
+    buf = L.constrain(buf[:-1].reshape(El, C, D), ("experts", None, "embed"))
 
     # expert computation (batched GEMM over the expert dim)
-    h = torch.bmm(buf, p.wg.to(x.dtype))
-    u = torch.bmm(buf, p.wu.to(x.dtype))
-    out = torch.bmm(F.silu(h) * u, p.wd.to(x.dtype))
+    h = torch.bmm(buf, wg.to(x.dtype))
+    u = torch.bmm(buf, wu.to(x.dtype))
+    h = L.constrain(F.silu(h) * u, ("experts", None, "expert_ff"))
+    out = L.constrain(torch.bmm(h, wd.to(x.dtype)),
+                      ("experts", None, "embed"))
 
     # combine
-    rows = out.reshape(E * C, D)
-    gathered = torch.where(keep[:, None], rows[slot.clamp(0, E * C - 1)],
+    rows = out.reshape(El * C, D)
+    gathered = torch.where(local[:, None], rows[slot.clamp(0, El * C - 1)],
                            torch.zeros((), dtype=x.dtype, device=x.device))
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device)
     y.index_add_(0, st, gathered * r["sg"][:, None])
@@ -115,7 +137,44 @@ def moe_mlp(p, cfg: ModelConfig, x):
     # auxiliary load-balance loss
     frac = r["counts"].float() / (T * K)
     aux = E * torch.sum(frac * r["probs"].mean(0)) * cfg.aux_loss_coef
-    return y.reshape(B, S, D), aux
+    return L.constrain(y.reshape(B, S, D), ("batch", "seq", "embed")), aux
+
+
+def _moe_mlp_mesh(p, cfg: ModelConfig, x):
+    """``moe_mlp`` on local shards: the tokens gathered on every rank, the
+    router replicated, each rank's experts (the ``experts`` rule's shard,
+    their other dims gathered). y comes back as a partial sum over the
+    experts' mesh dims, reduced by the constrain to the residual's
+    placements, and so do the gradients of x and of the router. The aux
+    loss, which every rank computes whole, is returned as a partial sum of
+    its 1/n (n ranks over the experts' dims), so that its gradient is
+    counted once."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = active_mesh()
+    e_pl = placements_for(mesh, active_rules().spec_for(("experts",)))
+    e_dims = [i for i, pl in enumerate(e_pl) if pl.is_shard()]
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if i in e_dims else Replicate()
+                 for i in range(mesh.ndim))
+    n = 1
+    for i in e_dims:
+        n *= mesh.size(i)
+
+    def local(xl, router, wg, wu, wd):
+        r = 0
+        for i in e_dims:
+            r = r * mesh.size(i) + mesh.get_local_rank(i)
+        y, aux = _moe_experts(cfg, xl, router, wg, wu, wd,
+                              r * -(-cfg.n_experts // n))
+        return y, aux / n
+
+    y, aux = local_map(local, out_placements=(part, part),
+                       in_placements=(rep, rep, e_pl, e_pl, e_pl),
+                       in_grad_placements=(part, part, e_pl, e_pl, e_pl),
+                       device_mesh=mesh, redistribute_inputs=True)(
+        x, p.router, p.wg, p.wu, p.wd)
+    return L.constrain(y, ("batch", "seq", "embed")), aux
 
 
 def _apply_block(p, cfg, x, positions, angles, role):
@@ -139,8 +198,8 @@ def forward(model, tokens, positions=None, return_hidden=False):
     angles = L.rope_angles(pos[None].expand(B, S), cfg.hd, cfg.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, blk in enumerate(model.blocks):
-        x, aux = _apply_block(blk, cfg, x, positions, angles,
-                              dense.layer_role(cfg, layer))
+        x, aux = L.remat_call(cfg, _apply_block, blk, cfg, x, positions,
+                              angles, dense.layer_role(cfg, layer))
         aux_total = aux_total + aux
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:

@@ -2,8 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without ``device=`` they raise rather than run on the CPU.
-``abstract_params`` (the JAX package's shape-only tree for its dry run) is
-not ported: it comes with the dry run on the meta device (ROADMAP item 10).
+``abstract_params`` and ``init_cache(..., abstract=True)`` build on the
+meta device: shapes and dtypes, no memory (the dry run's stand-ins).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from ..device import resolve_device  # noqa: F401 (the entry points' rule)
 from .config import ModelConfig
 from . import dense, encdec, hybrid, layers as L, moe, ssm
 
@@ -35,15 +36,6 @@ def family_module(cfg: ModelConfig):
     return mod
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda``; a CUDA device must exist."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; repro_torch runs on "
-                           "the GPU unless called with device='cpu'")
-    return dev
-
-
 def model_spec(cfg: ModelConfig) -> dict:
     return family_module(cfg).model_spec(cfg)
 
@@ -51,6 +43,12 @@ def model_spec(cfg: ModelConfig) -> dict:
 def build_model(cfg: ModelConfig, device=None) -> L.Model:
     """The family's model with uninitialised weights on ``device``."""
     return L.Model(model_spec(cfg), cfg, resolve_device(device))
+
+
+def abstract_params(cfg: ModelConfig) -> L.Model:
+    """The model on the meta device: every parameter's shape and dtype (the
+    JAX package's ``abstract_tree``), no memory allocated."""
+    return L.Model(model_spec(cfg), cfg, torch.device("meta"))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Model:
@@ -112,7 +110,13 @@ def forward(model, batch: dict, return_hidden=False):
                                       return_hidden=return_hidden, **kwargs)
 
 
-def init_cache(model, batch: int, max_seq: int):
+def init_cache(model, batch: int, max_seq: int, abstract: bool = False):
+    """The family's decode cache, zeros on the model's device; with
+    ``abstract`` on the meta device, and ``model`` may be its config."""
+    if abstract:
+        cfg = model if isinstance(model, ModelConfig) else model.cfg
+        return family_module(cfg).init_cache(cfg, batch, max_seq,
+                                             torch.device("meta"))
     dev = next(model.parameters()).device
     return family_module(model.cfg).init_cache(model.cfg, batch, max_seq, dev)
 

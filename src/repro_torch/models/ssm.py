@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.specs import local_region
 from .config import ModelConfig
 from . import layers as L
 
@@ -46,14 +47,12 @@ def model_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv: x (B,S,C), w (K,C) — as K shifted adds."""
-    K = w.shape[0]
-    out = x * w[K - 1]
-    for k in range(1, K):
-        shifted = F.pad(x, (0, 0, k, 0))[:, :-k]
-        out = out + shifted * w[K - 1 - k]
-    return F.silu(out + b)
+# on a mesh: per batch row and channel on local shards (a DTensor pad of
+# the sequence has no rule in every torch version)
+_conv_region = local_region(
+    L.causal_conv, in_axes=(("batch", None, "heads"), ("conv", "heads"),
+                           ("heads",)),
+    out_axes=("batch", None, "heads"))
 
 
 def _split_proj(cfg, proj):
@@ -109,23 +108,32 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     return (y_diag + y_off).reshape(b, s, h, p)
 
 
+# on a mesh: per batch row and head on local shards (DTensor has no rule
+# for the chunk loop's ops on sharded heads)
+_ssd_region = local_region(
+    ssd_chunked,
+    in_axes=(("batch", None, "heads", None), ("batch", None, "heads"),
+             ("heads",), ("batch", None, None), ("batch", None, None), None),
+    out_axes=("batch", None, "heads", None))
+
+
 def _apply_block(p, cfg, x):
     B, S, D = x.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    h = L.rmsnorm(x, p.norm, cfg.norm_eps)
+    h = L.seq_gathered(L.rmsnorm(x, p.norm, cfg.norm_eps))
     proj = h @ p.in_proj
     z, xBC, dt = _split_proj(cfg, proj)
-    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    xBC = F.silu(_conv_region(xBC, p.conv_w, p.conv_b))
     xs = xBC[..., :din].reshape(B, S, H, P)
     Bm = xBC[..., din:din + N]
     Cm = xBC[..., din + N:]
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log.float())
-    y = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)      # fp32
+    y = _ssd_region(xs, dt, A, Bm, Cm, cfg.ssm_chunk)      # fp32
     y = y + xs * p.D[None, None, :, None]
     y = y.reshape(B, S, din) * F.silu(z)
     y = L.rmsnorm(y, p.out_norm, cfg.norm_eps)
-    return x + (y @ p.out_proj.to(y.dtype)).to(x.dtype)
+    return x + L.residual_branch((y @ p.out_proj.to(y.dtype)).to(x.dtype))
 
 
 def forward(model, tokens, positions=None, return_hidden=False):
@@ -135,7 +143,7 @@ def forward(model, tokens, positions=None, return_hidden=False):
     cfg = model.cfg
     x = L.embed(model, cfg, tokens)
     for blk in model.blocks:
-        x = _apply_block(blk, cfg, x)
+        x = L.remat_call(cfg, _apply_block, blk, cfg, x)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     if return_hidden:
         return x, None

@@ -16,6 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models import registry
+from ..models.layers import seq_gathered
+from ..sharding.specs import reduce_partial
 from ..models.config import ModelConfig
 from ..optim import adamw
 from ..optim.adamw import AdamWConfig
@@ -37,7 +39,8 @@ def _ce_piece(cfg, tcfg, w, xc, lc):
     if cfg.logit_softcap:
         logits = torch.tanh(logits / 30.0) * 30.0
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    tgt = reduce_partial(torch.gather(logits, -1,
+                                      lc.clamp(min=0).long()[..., None]))[..., 0]
     mask = (lc >= 0).float()
     nll = -((tgt - lse) * mask).sum()
     z = torch.square(lse * mask).sum() if tcfg.z_loss \
@@ -50,6 +53,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
     labels that are not -1, plus the z-loss and the MoE aux loss."""
     def loss_fn(model, batch):
         hidden, extras = registry.forward(model, batch, return_hidden=True)
+        hidden = seq_gathered(hidden)   # a mesh's SP residual, gathered
         labels = batch["labels"]
         # VLM: hidden covers [vision tokens ; text tokens]; labels are padded
         # with ignore (-1) on the vision prefix by the pipeline/input spec.

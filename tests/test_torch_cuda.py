@@ -582,3 +582,72 @@ def test_launch_train_on_the_card(cuda_device, tmp_path):
     lines = r.stdout.splitlines()
     assert [ln.split()[1] for ln in lines] == ["0", "10"]
     assert (tmp_path / "ckpt_00000011.msgpack").exists()
+
+
+@pytest.fixture
+def one_rank_mesh(cuda_device):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_dtensors_are_the_direct_calls(one_rank_mesh, dtype):
+    """K1 and K2 given DTensors on a one-rank mesh reach the same kernels
+    through their custom ops: bit-equal to the direct calls, one launch
+    a call."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.specs import distribute
+    mesh = one_rank_mesh
+    x, s = _norm_inputs("cuda", 1024, 4096, dtype)
+    want = ops.rmsnorm(x, s)
+    xd = distribute(x, mesh, (Shard(0), Replicate()))
+    sd = distribute(s, mesh, (Replicate(), Replicate()))
+    n0 = trn.rmsnorm.launches
+    got = ops.rmsnorm(xd, sd)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm.launches == n0 + 1
+    assert torch.equal(got.full_tensor(), want)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(2, 256, H, 128, generator=g, device="cuda")
+               .to(dtype) for H in (8, 2, 2))
+    want = ops.flash_attention(q, k, v, causal=True)
+    pl = (Shard(0), Shard(2))
+    qd, kd, vd = (distribute(t, mesh, pl) for t in (q, k, v))
+    n0 = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(qd, kd, vd, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n0 + 1
+    assert torch.equal(got.full_tensor(), want)
+    # k and v replicated on heads, q sharded: the GQA case
+    kr, vr = (distribute(t, mesh, (Shard(0), Replicate())) for t in (k, v))
+    got = ops.flash_attention(qd, kr, vr, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n0 + 2
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.cuda
+def test_kernels_on_fake_cuda_tensors_launch_nothing(cuda_device):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        x = torch.empty(4096, 4096, dtype=torch.bfloat16, device="cuda")
+        y = ops.rmsnorm(x, torch.empty(4096, dtype=torch.bfloat16,
+                                       device="cuda"))
+        q = torch.empty(1, 4096, 32, 128, dtype=torch.bfloat16, device="cuda")
+        k = torch.empty(1, 4096, 4, 128, dtype=torch.bfloat16, device="cuda")
+        o = ops.flash_attention(q, k, k, causal=True)
+    assert (tuple(y.shape), y.dtype, y.device.type) == \
+        ((4096, 4096), torch.bfloat16, "cuda")
+    assert (tuple(o.shape), o.dtype) == ((1, 4096, 32, 128), torch.bfloat16)
+    assert all(n == 0 for n in ops.launch_counts().values())

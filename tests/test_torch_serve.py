@@ -281,6 +281,10 @@ def test_port_imports_neither_jax_nor_repro():
         " 'mamba2_1_3b', 'mixtral_8x7b', 'qwen2_vl_2b', 'recurrentgemma_2b',"
         " 'whisper_medium'):\n"
         "    assert f'repro_torch.configs.{arch}' in mods, arch\n"
+        "for m in ('mesh', 'inputs', 'dryrun'):\n"
+        "    assert f'repro_torch.launch.{m}' in mods, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
