@@ -8,7 +8,9 @@ nvcc (sm_90a, one process per source, in parallel), prints ptxas's
 registers, shared memory and spills for each kernel, each attention
 library's dynamic shared memory by head dim and the RMSNorm ring's at
 D=4096 bf16 and D=8192 fp32, and the count of HGMMA (wgmma) instructions
-in the bf16 attention library's SASS, which must not be 0. Phase 1 holds
+in the bf16 attention libraries' SASS (forward and backward), which must
+not be 0, and checks the backward's shared memory against
+flash_attention.backward_smem_bytes. Phase 1 holds
 each kernel against its plain PyTorch version on the card, at the JAX
 kernel tests' shapes, at yi-9b's own and at gemma3-12b's global layers'
 (16 heads over 8, hd 256), at the families' (K2: kimi-k2's 64 heads over
@@ -108,22 +110,32 @@ obligation is replayed on the card at rtol = atol = 2e-4; the path must
 launch no kernel; tp_decode@2 on 2 spawned workers must give the
 in-process stable summary byte for byte; and the explain smoke's three
 legs (python -m repro_torch.launch.explain_smoke) must pass on the card.
-Phase 9 (run after phase 6) trains on the card: gpt at full width and
-depth (12 x 768, vocab 50257, bf16, seed 0) for 50 steps of 8 x 1024
-tokens through launch.train's step function (step ms, tokens/s, peak
-memory, the loss every 10 steps; exactly 25 RMSNorm and 12 bf16
-attention launches a step, the backward launching neither; the mean loss
-of the last 5 steps below the first step's); the same model's gradients
-on one batch of 2 x 1024 against autograd through the plain versions on
-the card, in float32 (the attention's float32 route; loss within 1e-5
-relative, every parameter's gradient within 2e-4 relative RMS) and bf16
-(loss within 1e-2, gradient norm within 2e-2); yi-9b at full width, 8 of
-its 48 layers (AdamW's ~12 bytes a parameter would not fit 48), 2 steps
-of 1 x 4096 tokens in bf16, profiled for the share of a step's device
-time in each kernel's torch-op backward; launch.train's own main for 20
-steps of the reduced config (float32); then each kernel at these shapes,
-forward and backward, against its plain version and the PyTorch call
-(F.rms_norm, scaled_dot_product_attention) beside its bound.
+Phase 9 (run after phase 6) trains on the card. First each backward
+kernel against its plain version (the closed form): K2's bf16 backward
+at head dims 32, 64, 112, 128 and 256, causal and not, G = H / KV of 1,
+2 and 8, S = 1024 and the ragged 1000 (dq, dk and dv each within 1e-2
+relative RMS, the saved LSE within 1e-3), K1's in fp32 and bf16 over
+widths 128-8192 and 1-8192 rows (dx as the forward's 1e-5 / 3e-2,
+dscale 1e-4 / 1e-2). Then gpt at full width and depth (12 x 768, vocab
+50257, bf16, seed 0) for 50 steps of 8 x 1024 tokens through
+launch.train's step function (step ms, tokens/s, peak memory, the loss
+every 10 steps; exactly 25 RMSNorm and 12 bf16 attention launches a
+step and, in the backward, 25 RMSNorm and 12 bf16 attention backward
+kernel launches; the mean loss of the last 5 steps below the first
+step's); the same model's gradients on one batch of 2 x 1024 against
+autograd through the plain versions on the card, in float32 (the
+attention's float32 route, whose backward is the closed form; loss
+within 1e-5 relative, every parameter's gradient within 2e-4 relative
+RMS) and bf16 (loss within 1e-2, gradient norm within 2e-2); yi-9b at
+full width, 8 of its 48 layers (AdamW's ~12 bytes a parameter would not
+fit 48), 2 steps of 1 x 4096 tokens in bf16 (17 / 8 forward and backward
+launches a step), profiled for the share of a step's device time in each
+backward kernel by its kernels' names, and its peak memory;
+launch.train's own main for 20 steps of the reduced config (float32: 5
+RMSNorm backward launches a step, no bf16 attention backward); then
+each kernel at gpt's, yi-9b's and the reduced config's shapes, forward
+and backward, against its plain version and the PyTorch call (F.rms_norm,
+scaled_dot_product_attention, and their backward) beside its bound.
 Phase 10 runs the launch tooling on a DeviceMesh. (a), right after phase
 3 on phase 2's model: yi-9b at full width and depth with its parameters
 as DTensors on a real (1, 1) ("data", "model") mesh over a one-rank NCCL
@@ -143,7 +155,9 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
 qwen2-vl's, gemma3-27b's and command-r's shapes carry the launches of
 their model's phase-6 path; the training shapes those of phase 9's). Any failure raises and exits non-zero, and
-the script exits non-zero without a CUDA device.
+the script exits non-zero without a CUDA device. The backward kernels
+have entries of their own (ms the kernel's, plain_ms the closed form's,
+library_ms the PyTorch call's backward).
 """
 import contextlib
 import copy
@@ -177,6 +191,7 @@ N_LAYERS = 48                          # yi-9b
 N_NORMS = 2 * N_LAYERS + 1             # RMSNorm calls a forward or step makes
 D_MODEL = 4096                         # yi-9b
 BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
+BF16_BWD_LIB = "flash_attention_bwd_sm90"  # and of its backward
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
 # two paths round at different places (the flash kernel's tiled online
 # softmax vs the decode attention's one pass, GEMM vs GEMV summation order)
@@ -329,7 +344,7 @@ def phase0():
     n_sm = rn.sm_count(0)
     for name, path in libs.items():
         print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}")
-        if name.startswith("flash_attention"):
+        if name in (BF16_LIB, "flash_attention"):
             smem_bytes = getattr(ctypes.CDLL(str(path)),
                                  f"repro_{name}_smem_bytes")
             smem_bytes.argtypes = [ctypes.c_int]
@@ -344,12 +359,24 @@ def phase0():
                       f"{n_sm} SMs: {p.stages} stages of {D * dt.itemsize} "
                       f"bytes, {p.smem} bytes of dynamic shared memory a "
                       f"block, grid {p.grid} x {p.threads} threads")
-    sass = subprocess.run([cuobjdump(), "-sass", str(libs[BF16_LIB])],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-    print(f"[sass] {libs[BF16_LIB].name}: {hgmma} HGMMA instructions")
-    check(hgmma > 0, "the bf16 attention library has no wgmma (HGMMA)")
+    for name in (BF16_LIB, BF16_BWD_LIB):
+        sass = subprocess.run([cuobjdump(), "-sass", str(libs[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+        print(f"[sass] {libs[name].name}: {hgmma} HGMMA instructions")
+        check(hgmma > 0, f"{name} has no wgmma (HGMMA)")
+    from repro_torch.kernels import flash_attention as fa
+    smem_bytes = ctypes.CDLL(str(libs[BF16_BWD_LIB])) \
+        .repro_flash_attention_bwd_sm90_smem_bytes
+    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for dq in (0, 1):
+        smem = {hd: smem_bytes(hd, dq) for hd in fa.SUPPORTED_HEAD_DIMS}
+        print(f"[smem] {BF16_BWD_LIB} {'dQ' if dq else 'main'} kernel: "
+              f"dynamic shared memory a block, by head dim: {smem}")
+        check(smem == {hd: fa.backward_smem_bytes(hd, bool(dq))
+                       for hd in fa.SUPPORTED_HEAD_DIMS},
+              f"backward smem {smem} is not backward_smem_bytes'")
     return smi
 
 
@@ -1656,30 +1683,99 @@ def plain_kernels():
         ops.rmsnorm, ops.flash_attention = saved
 
 
-@contextlib.contextmanager
-def backward_ranges():
-    """Each kernel's torch-op backward in a profiler range of its name."""
-    from torch.profiler import record_function
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
-    saved = {}
-    for mod, name in ((fa, "flash_attention_backward"),
-                      (rn, "rmsnorm_backward")):
-        real = saved[(mod, name)] = getattr(mod, name)
-
-        def ranged(*a, _real=real, _name=name, **k):
-            with record_function(_name):
-                return _real(*a, **k)
-        setattr(mod, name, ranged)
-    try:
-        yield
-    finally:
-        for (mod, name), real in saved.items():
-            setattr(mod, name, real)
+# The backward kernels' device kernels, by the names the profiler gives
+# them: K2's prologue (delta, LSE), main kernel and dQ cast; K1's pass and
+# its column sum (both named rmsnorm_bwd*)
+BWD_KERNEL_NAMES = {"flash_attention_bwd_bf16": ("bwd_prologue",
+                                                 "flash_bwd_sm90",
+                                                 "flash_bwd_dq_sm90"),
+                    "rmsnorm_bwd": ("rmsnorm_bwd",)}
 
 
 def _rel_rms(got, want):
     return ((got.float() - want.float()).norm()
             / want.float().norm().clamp_min(1e-30)).item()
+
+
+# The backward kernels against their plain versions (the closed forms):
+# K2 bf16 at every head dim, causal and not, G = H / KV of 1, 2 and 8, at
+# whole 128-key tiles and a ragged S; K1 in fp32 and bf16 over widths and
+# row counts (the decode's 4, both sides of the backward's one-block plan,
+# a ragged count and gpt's training rows).
+BWD_HEAD_DIMS = (32, 64, 112, 128, 256)
+BWD_GROUPS = (1, 2, 8)
+BWD_SEQS = (1024, 1000)
+BWD_REL_RMS = 1e-2           # each of dq, dk, dv (bf16; P and dS in bf16)
+LSE_ABS = 1e-3               # the forward's saved log-sum-exp
+BWD_NORM_WIDTHS = (128, 768, 1024, 2048, 4096, 5376, 8192)
+BWD_NORM_ROWS = (1, 4, 133, 1000, 8192)
+# K1's backward limits: dx as the forward's (fp32 1e-5, bf16 3e-2), dscale
+# 1e-4 / 1e-2, each |got - want| <= tol (1 + |want|)
+BWD_NORM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+
+
+def backward_kernel_checks(smi):
+    """Each backward kernel against its plain version on the card; fails
+    on any disagreement. Returns the worst readings."""
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = time.perf_counter()
+    worst = dict(dq=0.0, dk=0.0, dv=0.0, lse_abs=0.0)
+    n_attn = 0
+    for hd in BWD_HEAD_DIMS:
+        for G in BWD_GROUPS:
+            for causal in (True, False):
+                for S in BWD_SEQS:
+                    B, KV = 2, 2
+                    q, k, v, dy = (
+                        torch.randn(shape, generator=g, device="cuda")
+                        .bfloat16() for shape in (
+                            (B, S, KV * G, hd), (B, S, KV, hd),
+                            (B, S, KV, hd), (B, S, KV * G, hd)))
+                    lse = fa.new_lse(q)
+                    out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+                    _, lse_ref = fa.flash_attention_plain_lse(
+                        q, k, v, causal=causal)
+                    got = fa.flash_attention_bwd_bf16(q, k, v, out, lse, dy,
+                                                      causal=causal)
+                    want = fa.flash_attention_backward(q, k, v, dy, causal)
+                    torch.cuda.synchronize()
+                    what = f"hd {hd} G {G} causal {causal} S {S}"
+                    err = (lse - lse_ref).abs().max().item()
+                    check(err <= LSE_ABS, f"K2 LSE {what}: {err}")
+                    worst["lse_abs"] = max(worst["lse_abs"], err)
+                    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                        check(a.shape == b.shape and a.dtype == b.dtype,
+                              f"K2 backward {name} {what}: {a.shape} "
+                              f"{a.dtype}")
+                        rel = _rel_rms(a, b)
+                        check(rel <= BWD_REL_RMS, f"K2 backward {name} "
+                              f"{what}: relative RMS {rel} beyond "
+                              f"{BWD_REL_RMS}")
+                        worst[name] = max(worst[name], rel)
+                    n_attn += 1
+    norm = {}
+    for dt, (tol_dx, tol_ds) in BWD_NORM_TOL.items():
+        w = norm[str(dt)] = dict(dx=0.0, dscale=0.0)
+        for D in BWD_NORM_WIDTHS:
+            for rows in BWD_NORM_ROWS:
+                x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+                s = (torch.randn(D, generator=g, device="cuda") * 0.1).to(dt)
+                dy = torch.randn((rows, D), generator=g,
+                                 device="cuda").to(dt)
+                dx, ds = rn.rmsnorm_bwd(x, s, dy)
+                dx_ref, ds_ref = rn.rmsnorm_backward(x, s, dy)
+                w["dx"] = max(w["dx"], max_err(dx, dx_ref, tol_dx))
+                w["dscale"] = max(w["dscale"], max_err(ds, ds_ref, tol_ds))
+    rec = dict(attention_cases=n_attn, head_dims=list(BWD_HEAD_DIMS),
+               groups=list(BWD_GROUPS), seqs=list(BWD_SEQS),
+               attention_worst_rel_rms=worst, rel_rms_limit=BWD_REL_RMS,
+               rmsnorm_worst_max_abs=norm,
+               rmsnorm_widths=list(BWD_NORM_WIDTHS),
+               rmsnorm_rows=list(BWD_NORM_ROWS),
+               seconds=time.perf_counter() - t, card=smi)
+    print(f"[bwd-check] {json.dumps(rec)}")
+    return rec
 
 
 def _synthetic(cfg, batch, seq, step, device):
@@ -1703,7 +1799,9 @@ def train_gpt(smi):
     step_fn = make_train_step(cfg, TrainConfig())
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1,
                 "flash_attention_bf16": cfg.n_layers,
-                "flash_attention_fp32": 0}
+                "flash_attention_fp32": 0,
+                "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+                "flash_attention_bwd_bf16": cfg.n_layers}
     losses, step_ms, launches = {}, [], {k: 0 for k in per_step}
     for step in range(GPT_STEPS):
         batch = _synthetic(cfg, GPT_BATCH, GPT_SEQ, step, "cuda")
@@ -1760,8 +1858,12 @@ def grads_against_plain(smi):
         counts = ops.launch_counts()
         route = "flash_attention_bf16" if dtype == "bfloat16" \
             else "flash_attention_fp32"
-        check(counts["rmsnorm"] == 2 * cfg.n_layers + 1
-              and counts[route] == cfg.n_layers,
+        # the backward: K1's kernel in both dtypes, K2's bf16 kernel (the
+        # fp32 route's backward is the closed form)
+        check(counts["rmsnorm"] == counts["rmsnorm_bwd"] == 2 * cfg.n_layers + 1
+              and counts[route] == cfg.n_layers
+              and counts["flash_attention_bwd_bf16"]
+              == (cfg.n_layers if dtype == "bfloat16" else 0),
               f"gpt {dtype} gradient: launches {counts}")
         with plain_kernels():
             ref, mr = grad_fn(model, batch)
@@ -1795,9 +1897,10 @@ def grads_against_plain(smi):
 
 def train_yi(smi):
     """(c) yi-9b at full width, YI_LAYERS of its 48 layers, one sequence of
-    YI_SEQ tokens in bf16, YI_STEPS steps: finite losses, peak memory, and
-    from the profiler the share of a step's device time in each kernel's
-    torch-op backward."""
+    YI_SEQ tokens in bf16, YI_STEPS steps: finite losses, peak memory, the
+    launches of each step, and from the profiler the share of a step's
+    device time in each backward kernel (by its kernels' names) and in the
+    forward kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
@@ -1810,7 +1913,7 @@ def train_yi(smi):
     torch.cuda.reset_peak_memory_stats()
     model, opt = init_state(cfg, 0, "cuda")
     step_fn = make_train_step(cfg, TrainConfig())
-    losses, step_ms = [], []
+    losses, step_ms, launches = [], [], {}
     for step in range(YI_STEPS):
         batch = _synthetic(cfg, 1, YI_SEQ, step, "cuda")
         ops.reset_launch_counts()
@@ -1818,7 +1921,7 @@ def train_yi(smi):
         t = time.perf_counter()
         if step == YI_STEPS - 1:
             acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with backward_ranges(), profile(activities=acts) as prof:
+            with profile(activities=acts) as prof:
                 model, opt, m = step_fn(model, opt, batch)
                 losses.append(float(m["loss"]))
                 torch.cuda.synchronize()
@@ -1828,26 +1931,28 @@ def train_yi(smi):
             torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         counts = ops.launch_counts()
-        check(counts["rmsnorm"] == 2 * YI_LAYERS + 1
-              and counts["flash_attention_bf16"] == YI_LAYERS,
+        check(counts["rmsnorm"] == counts["rmsnorm_bwd"] == 2 * YI_LAYERS + 1
+              and counts["flash_attention_bf16"]
+              == counts["flash_attention_bwd_bf16"] == YI_LAYERS,
               f"yi-9b step {step}: launches {counts}")
+        launches = {k: launches.get(k, 0) + n for k, n in counts.items()}
     check(all(math.isfinite(x) for x in losses), f"yi-9b losses {losses}")
     kernels = [e for e in prof.key_averages()
                if e.device_type != DeviceType.CPU]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    shares = {}
-    for name in ("flash_attention_backward", "rmsnorm_backward"):
-        ranges = [e for e in prof.events() if e.name == name
-                  and e.device_type == DeviceType.CPU]
-        ms = sum(e.device_time_total for e in ranges) / 1e3
-        shares[name] = dict(calls=len(ranges), device_ms=ms,
-                            share_of_device_busy=ms / dev_ms)
-    fwd = {k: sum(e.self_device_time_total for e in kernels if k in e.key)
-           / 1e3 for k in ("rmsnorm", "flash_fwd")}
+
+    def named(*keys):
+        hit = [e for e in kernels if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        return dict(device_ms=ms, share_of_device_busy=ms / dev_ms,
+                    launches=sum(e.count for e in hit))
+    shares = {name: named(*keys) for name, keys in BWD_KERNEL_NAMES.items()}
+    fwd = {"rmsnorm": named("rmsnorm_rows", "rmsnorm_ring"),
+           "flash_fwd": named("flash_fwd")}
     rec = dict(model="yi-9b", layers=YI_LAYERS, d_model=cfg.d_model,
                batch=[1, YI_SEQ], dtype=cfg.dtype, losses=losses,
                step_ms=step_ms, profiled_step_device_busy_ms=dev_ms,
-               backward=shares, forward_kernels_ms=fwd,
+               backward=shares, forward_kernels=fwd, launches=launches,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                n_params=sum(p.numel() for p in model.parameters()),
                card=smi)
@@ -1874,21 +1979,51 @@ def train_cli():
           and all(math.isfinite(float(ln.split()[-1])) for ln in lines),
           f"launch.train printed {lines}")
     layers = 2                                 # gpt's reduced() depth
-    check(counts["rmsnorm"] == TRAIN_CLI_STEPS * (2 * layers + 1)
+    check(counts["rmsnorm"] == counts["rmsnorm_bwd"]
+          == TRAIN_CLI_STEPS * (2 * layers + 1)
           and counts["flash_attention_fp32"] == TRAIN_CLI_STEPS * layers
-          and counts["flash_attention_bf16"] == 0,
+          and counts["flash_attention_bf16"] == 0
+          and counts["flash_attention_bwd_bf16"] == 0,
           f"launch.train: launches {counts}")
     print(f"[train-cli] {json.dumps(dict(lines=lines, launches=counts))}")
     return counts
 
 
+# Each kernel at the training paths' shapes (tag: path): gpt's full size,
+# launch.train's reduced default (fp32: K2's fp32 route, whose backward is
+# the closed form) and yi-9b's (8 layers, 1 x 4096)
+TRAIN_NORM_SHAPES = (("gpt_train", GPT_BATCH * GPT_SEQ, 768, torch.bfloat16),
+                     ("train_reduced", 4 * 128, 128, torch.float32),
+                     ("yi9b_train", YI_SEQ, D_MODEL, torch.bfloat16))
+TRAIN_ATTN_SHAPES = (("gpt_train", (GPT_BATCH, GPT_SEQ, 12, 12, 64),
+                      torch.bfloat16),
+                     ("train_reduced", (4, 128, 4, 2, 32), torch.float32),
+                     ("yi9b_train", (1, YI_SEQ, 32, 4, 128), torch.bfloat16))
+
+
+def kernel_split(fn, names, calls=5):
+    """Mean device ms a call of ``fn`` in each kernel whose name contains
+    one of ``names`` (the profiler's kernel names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    return {n: sum(e.self_device_time_total for e in evs if n in e.key)
+            / 1e3 / calls for n in names}
+
+
 def train_kernel_records(peaks, smi):
-    """Each kernel at the training path's shapes, forward and backward:
-    the kernel, its plain version and one PyTorch call, timed with CUDA
-    events beside the bound; the backward (torch ops) beside the library
-    call's backward. Shapes: gpt full (K1 at 8192 x 768, K2 at
-    (8, 1024, 12/12, 64) bf16) and launch.train's reduced default (K1 at
-    512 x 128, K2 at (4, 128, 4/2, 32) fp32)."""
+    """Each kernel at the training paths' shapes, forward and backward: the
+    kernel, its plain version and one PyTorch call (forward and backward:
+    F.rms_norm, scaled_dot_product_attention), timed with CUDA events
+    beside the bound; the backward kernels (K1 in both dtypes, K2 bf16)
+    held against their plain versions (the closed forms), whose times are
+    kept beside them."""
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     bw, bf16_rate, f32_rate = peaks
     rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
@@ -1908,23 +2043,30 @@ def train_kernel_records(peaks, smi):
                        it, flush)
 
     records = []
-    for rows, D, dt in ((GPT_BATCH * GPT_SEQ, 768, torch.bfloat16),
-                        (4 * 128, 128, torch.float32)):
+    for tag, rows, D, dt in TRAIN_NORM_SHAPES:
         x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
         s = (torch.randn(D, generator=g, device="cuda") * 0.1).to(dt)
         dy = torch.randn((rows, D), generator=g, device="cuda").to(dt)
         w = (1.0 + s.float()).to(dt)
-        tol = 1e-5 if dt == torch.float32 else 3e-2
+        tol, tol_ds = BWD_NORM_TOL[dt]
         n = x.numel() * x.element_size()
-        rec = dict(kernel="rmsnorm", shape=[rows, D], dtype=str(dt),
+        dx, ds = rn.rmsnorm_bwd(x, s, dy)
+        dx_ref, ds_ref = rn.rmsnorm_backward(x, s, dy)
+        rec = dict(kernel="rmsnorm", tag=tag, shape=[rows, D], dtype=str(dt),
                    plan=rn.plan(rows, D, dt, rn.sm_count(0)).name,
+                   backward_plan=rn.backward_plan(rows, D, dt,
+                                                  rn.sm_count(0))._asdict(),
                    max_abs_err=max_err(rn.rmsnorm(x, s),
                                        rn.rmsnorm_plain(x, s), tol),
+                   backward_max_abs_err=max_err(dx, dx_ref, tol),
+                   backward_dscale_max_abs_err=max_err(ds, ds_ref, tol_ds),
                    ms=time_ms(lambda: rn.rmsnorm(x, s), 50, flush),
                    plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, s), 50,
                                     flush),
                    library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6),
                                       50, flush),
+                   backward_kernel_ms=time_ms(lambda: rn.rmsnorm_bwd(
+                       x, s, dy), 50, flush),
                    backward_ms=time_ms(lambda: rn.rmsnorm_backward(
                        x, s, dy, 1e-6), 50, flush),
                    library_backward_ms=backward_ms(
@@ -1939,17 +2081,18 @@ def train_kernel_records(peaks, smi):
             torch.float32)
         records.append(rec)
         print(f"[K1 train] {json.dumps(rec)}")
-    for (B, S, H, KV, hd), dt in (((GPT_BATCH, GPT_SEQ, 12, 12, 64),
-                                   torch.bfloat16),
-                                  ((4, 128, 4, 2, 32), torch.float32)):
+        del x, dy, dx, dx_ref
+    for tag, (B, S, H, KV, hd), dt in TRAIN_ATTN_SHAPES:
         q, k, v, dy = (torch.randn(shape, generator=g, device="cuda").to(dt)
                        for shape in ((B, S, H, hd), (B, S, KV, hd),
                                      (B, S, KV, hd), (B, S, H, hd)))
-        got = fa.flash_attention(q, k, v, causal=True)
+        bf16 = dt == torch.bfloat16
+        lse = fa.new_lse(q) if bf16 else None
+        got = fa.flash_attention(q, k, v, causal=True, lse=lse)
         want = fa.flash_attention_plain(q, k, v, causal=True)
-        rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}",
+        rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}", tag=tag,
                    shape=[B, S, H, KV, hd], causal=True, dtype=str(dt))
-        if dt == torch.float32:
+        if not bf16:
             rec["max_abs_err"] = max_err(got, want, 2e-4)
         else:
             rel = row_rel_err(got, want)
@@ -1958,6 +2101,26 @@ def train_kernel_records(peaks, smi):
             rec["max_abs_err"] = (got.float() - want.float()).abs().max() \
                 .item()
             rec["row_rel_err"] = rel
+            grads = fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
+                                                causal=True)
+            ref = fa.flash_attention_backward(q, k, v, dy, True)
+            rels = {n: _rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                          grads, ref)}
+            check(max(rels.values()) <= BWD_REL_RMS,
+                  f"K2 backward {tag}: relative RMS {rels}")
+            rec["backward_rel_rms"] = rels
+            rec["backward_max_abs_err"] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(grads, ref))
+            del grads, ref
+            rec["backward_kernel_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
+                                                    causal=True), 20, flush)
+            rec["backward_kernels_ms"] = kernel_split(
+                lambda: fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
+                                                    causal=True),
+                BWD_KERNEL_NAMES["flash_attention_bwd_bf16"]
+                + ("bwd_sum_heads",))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa(q, k, v):
@@ -1969,32 +2132,41 @@ def train_kernel_records(peaks, smi):
             plain_ms=time_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True), 20, flush),
             library_ms=time_ms(lambda: sdpa(qt, kt, vt), 20, flush),
+            # the closed form builds (B, H, S, S) fp32 tensors, 2.1 GB
+            # each at yi-9b's shape, so fewer calls there
             backward_ms=time_ms(lambda: fa.flash_attention_backward(
-                q, k, v, dy, True), 20, flush),
+                q, k, v, dy, True), 5 if B * H * S * S > 2**28 else 20,
+                flush),
             library_backward_ms=backward_ms(sdpa, (qt, kt, vt),
                                             dy.transpose(1, 2), 20))
         pairs = B * H * S * (S + 1) // 2
-        nbytes = q.element_size() * B * S * hd * (H + KV)
-        rec["bound_ms"], rec["bound_by"] = bound(2 * nbytes, 4 * hd * pairs,
-                                                 dt)
-        # backward: read q, k, v, dy, write dq, dk, dv; five products
-        # (S recomputed, dP, dV, dQ, dK) over the causal pairs
+        es = q.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            2 * es * B * S * hd * (H + KV), 4 * hd * pairs, dt)
+        # backward: read q, k, v, dy (and the kernel's out and LSE), write
+        # dq, dk, dv; five products (S recomputed, dP, dV, dQ, dK) over
+        # the causal pairs
+        reads = es * B * S * hd * ((3 if bf16 else 2) * H + 2 * KV) \
+            + (4 * B * H * S if bf16 else 0)
         rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
-            4 * nbytes, 10 * hd * pairs, dt)
+            reads + es * B * S * hd * (H + 2 * KV), 10 * hd * pairs, dt)
         records.append(rec)
         print(f"[K2 train] {json.dumps(rec)}")
         del q, k, v, dy, got, want
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
-    return records
+    return {(r["kernel"].split("_")[0], r["tag"]): r for r in records}
 
 
 def phase9_train(peaks, smi):
-    """Training on the card: (a) gpt at full width and depth, 50 steps;
-    (b) its gradients against the plain path in fp32 and bf16; (c) yi-9b
-    at full width, 8 of 48 layers, 2 steps, profiled; (d) launch.train's
-    main on the reduced config; then each kernel at these shapes."""
+    """Training on the card: the backward kernels against their plain
+    versions; (a) gpt at full width and depth, 50 steps; (b) its gradients
+    against the plain path in fp32 and bf16; (c) yi-9b at full width, 8 of
+    48 layers, 2 steps, profiled; (d) launch.train's main on the reduced
+    config; then each kernel at these shapes, forward and backward."""
     t = time.perf_counter()
+    checks = backward_kernel_checks(smi)
     gpt = train_gpt(smi)
     grads = grads_against_plain(smi)
     yi = train_yi(smi)
@@ -2002,7 +2174,8 @@ def phase9_train(peaks, smi):
     records = train_kernel_records(peaks, smi)
     print(f"[phase9] {json.dumps(dict(
         phase9_s=time.perf_counter() - t, card=smi))}")
-    return dict(gpt=gpt, grads=grads, yi=yi, cli=cli, records=records)
+    return dict(checks=checks, gpt=gpt, grads=grads, yi=yi, cli=cli,
+                records=records)
 
 
 def _free_port() -> int:
@@ -2226,27 +2399,52 @@ def main():
     # each kernel at the training path's shapes, with the launches of the
     # phase-9 path that gives it that shape: gpt's 50 steps at full width
     # (bf16), launch.train's reduced default (fp32)
-    for name, rec, launches in (
-            ("rmsnorm@gpt_train", train["records"][0],
-             train["gpt"]["launches"]["rmsnorm"]),
-            ("rmsnorm@train_reduced", train["records"][1],
-             train["cli"]["rmsnorm"]),
-            ("flash_attention_bf16@gpt_train", train["records"][2],
-             train["gpt"]["launches"]["flash_attention_bf16"]),
-            ("flash_attention_fp32@train_reduced", train["records"][3],
-             train["cli"]["flash_attention_fp32"])):
+    recs = train["records"]
+    launched = {"gpt_train": train["gpt"]["launches"],
+                "train_reduced": train["cli"], "yi9b_train": train["yi"]["launches"]}
+    for name, key, counter in (
+            ("rmsnorm@gpt_train", ("rmsnorm", "gpt_train"), "rmsnorm"),
+            ("rmsnorm@train_reduced", ("rmsnorm", "train_reduced"), "rmsnorm"),
+            ("flash_attention_bf16@gpt_train", ("flash", "gpt_train"),
+             "flash_attention_bf16"),
+            ("flash_attention_fp32@train_reduced", ("flash", "train_reduced"),
+             "flash_attention_fp32")):
+        rec = recs[key]
         src = "rmsnorm.cu" if rec["kernel"] == "rmsnorm" else \
             f"{BF16_LIB if 'bf16' in name else 'flash_attention'}.cu"
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces="src/repro/kernels/rmsnorm.py:21"
             if rec["kernel"] == "rmsnorm" else fa_src,
-            launches=launches, path="training",
+            launches=launched[key[1]][counter], path="training",
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "backward_ms", "library_backward_ms",
                                     "backward_bound_ms", "shape")},
             card=smi))
+    # the backward kernels on the training paths: ms the kernel's, plain_ms
+    # the closed form's, library_ms the PyTorch call's backward
+    for name, key, counter, src, replaces in (
+            ("rmsnorm_bwd@gpt_train", ("rmsnorm", "gpt_train"), "rmsnorm_bwd",
+             "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
+            ("rmsnorm_bwd@train_reduced", ("rmsnorm", "train_reduced"),
+             "rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
+            ("rmsnorm_bwd@yi9b_train", ("rmsnorm", "yi9b_train"),
+             "rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
+            ("flash_attention_bwd_bf16@gpt_train", ("flash", "gpt_train"),
+             "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src),
+            ("flash_attention_bwd_bf16@yi9b_train", ("flash", "yi9b_train"),
+             "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src)):
+        rec = recs[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=replaces, launches=launched[key[1]][counter],
+            path="training", max_abs_err=rec["backward_max_abs_err"],
+            ms=rec["backward_kernel_ms"], plain_ms=rec["backward_ms"],
+            bound_ms=rec["backward_bound_ms"],
+            bound_by=rec["backward_bound_by"],
+            library_ms=rec["library_backward_ms"], shape=rec["shape"],
+            dtype=rec["dtype"], card=smi))
     # each kernel on phase 10's sharded path (DTensor parameters on a
     # (1, 1) mesh), at the 4 x 256 prefill's shapes
     for name, src, rec, launches in (

@@ -43,6 +43,13 @@
 // __grid_constant__ parameters. GQA: query head h reads KV head
 // h / (H / KV). The output is stored from registers through its strides.
 //
+// Training: given a pointer, the epilogue also writes each row's
+// log-sum-exp, (m + log2 l) ln 2, which flash_attention_bwd_sm90.cu
+// recomputes P from; serving passes none and launches an instance without
+// that code: one instance with the write behind a runtime test was 4-9%
+// slower at every serving shape (an H100 80GB HBM3 at 700 W, paired
+// against the kernel without it by python -m repro_torch.launch.kernel_times).
+//
 // C entry: repro_flash_attention_sm90_fwd, launched on the caller's stream;
 // it allocates nothing and returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for input TMA cannot address.
@@ -66,6 +73,7 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Tile {
@@ -84,14 +92,17 @@ struct Tile {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + BAR_BYTES;
 };
 
-// HD: the tile's head dim; HD_OUT <= HD: the columns the output has.
-template <int HD, int HD_OUT>
+// HD: the tile's head dim; HD_OUT <= HD: the columns the output has; LSE:
+// whether the epilogue also writes each row's log-sum-exp (training), an
+// instance of its own so that serving's code is the same without it.
+template <int HD, int HD_OUT, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, int S, int group,
-               int64_t sob, int64_t sos, int64_t soh, float scale, int causal) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+               int group, int64_t sob, int64_t sos, int64_t soh, float scale,
+               int causal) {
   using T = Tile<HD>;
   constexpr int BK = T::BK;
 
@@ -277,7 +288,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(v_empty(st));
     }
 
-    // epilogue: O / max(l, 1e-30), stored as bf16 through the strides
+    // epilogue: O / max(l, 1e-30), stored as bf16 through the strides, and
+    // (for the backward) the row's log-sum-exp of the scaled scores,
+    // (m + log2 l) ln 2, into the contiguous (B, H, S) lse
     __nv_bfloat16* ob = o + b * sob + h * soh;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -286,6 +299,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       li += __shfl_xor_sync(0xffffffffu, li, 2);
       const float inv = 1.f / fmaxf(li, 1e-30f);
       const int row = r0 + 8 * i;
+      if (LSE && row < S && lane % 4 == 0)
+        lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + row] =
+            (m[i] + log2f(fmaxf(li, 1e-30f))) * kLn2;
       if (row < S) {
         __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * sos;
 #pragma unroll
@@ -297,72 +313,28 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B) whose box is
-// one column block of `rows` rows of one head, for the tile of head dim HD
-// >= hd (columns hd..HD-1 read as zeros). Strides in elements.
-template <int HD>
-bool make_map(CUtensorMap* map, const void* base, int hd, int B, int S, int heads,
-              int64_t sb, int64_t ss, int64_t sh, int rows) {
-  using T = Tile<HD>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      T::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD, int HD_OUT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int S,
                    int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                    int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
                    int64_t sob, int64_t sos, int64_t soh, float scale, int causal,
                    cudaStream_t stream) {
   using T = Tile<HD>;
+  // boxes of one column block (columns HD_OUT..HD-1 read as zeros)
   CUtensorMap tq, tk, tv;
-  if (!make_map<HD>(&tq, q, HD_OUT, B, S, H, sqb, sqs, sqh, kBlockQ) ||
-      !make_map<HD>(&tk, k, HD_OUT, B, S, KV, skb, sks, skh, T::BK) ||
-      !make_map<HD>(&tv, v, HD_OUT, B, S, KV, svb, svs, svh, T::BK))
+  if (!make_bf16_map(&tq, q, HD_OUT, B, S, H, sqb, sqs, sqh, T::BOX, kBlockQ) ||
+      !make_bf16_map(&tk, k, HD_OUT, B, S, KV, skb, sks, skh, T::BOX, T::BK) ||
+      !make_bf16_map(&tv, v, HD_OUT, B, S, KV, svb, svs, svh, T::BOX, T::BK))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_sm90<HD, HD_OUT>;
+  auto kern = lse != nullptr ? flash_fwd_sm90<HD, HD_OUT, true>
+                             : flash_fwd_sm90<HD, HD_OUT, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   kern<<<grid, kThreads, T::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                            S, H / KV, sob, sos, soh, scale, causal);
+                                            lse, S, H / KV, sob, sos, soh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -373,17 +345,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // bf16 only. Strides are in elements; q/k/v must be TMA-addressable (16-byte
 // aligned base, strides of whole 16 bytes), which the Python wrapper checks.
+// `lse`: null, or a contiguous fp32 (B, H, S) that receives each row's
+// log-sum-exp (what the backward kernel recomputes P from).
 extern "C" int repro_flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
     int hd, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
     int64_t skh, int64_t svb, int64_t svs, int64_t svh, int64_t sob, int64_t sos,
-    int64_t soh, float scale, int causal, void* stream) {
+    int64_t soh, float scale, int causal, float* lse, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_CASE(HD_, TILE_)                                                    \
   case HD_:                                                                          \
-    return (int)launch<TILE_, HD_>(q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
+    return (int)launch<TILE_, HD_>(q, k, v, o, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
                                    skh, svb, svs, svh, sob, sos, soh, scale, causal, st);
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)

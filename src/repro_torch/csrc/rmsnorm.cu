@@ -37,9 +37,26 @@
 // 16-byte aligned; the Python wrapper checks this and raises. Row offsets
 // are 64-bit.
 //
+// Backward (training): the gradient of the same function, which the Pallas
+// kernel does not have (the JAX package differentiates XLA ops), computed
+// as kernels/rmsnorm.py:rmsnorm_backward, its plain version, does:
+//   r = rsqrt(mean(x^2) + eps), g = dy * (1 + scale),
+//   dx = r * (g - x * r^2 * mean(g * x)),  dscale = sum over rows of dy * x * r.
+// Bounded by bytes too (x and dy read, dx written once). One pass a row:
+// a block holds `slots` rows at a time, each over the threads a forward row
+// would take, every load of both rows issued before the two sums (sum x^2
+// and sum g x, reduced together), so an SM keeps ~16 rows in flight. Each
+// thread adds dy * x * r for its fixed columns into fp32 registers across
+// all its rows; at the end the block's slots are summed through shared
+// memory into one fp32 row of partials a block, and a second launch sums
+// the (grid, D) partials by column, in a fixed order (deterministic, no
+// atomics), into dscale in scale's dtype. Plan: kernels/rmsnorm.py:
+// backward_plan.
+//
 // C entries, launched on the caller's stream; each allocates nothing and
-// returns cudaGetLastError() of the launch: repro_rmsnorm_fwd and
-// repro_rmsnorm_empty (an empty kernel: the floor under any launch).
+// returns cudaGetLastError() of its launches: repro_rmsnorm_fwd,
+// repro_rmsnorm_bwd and repro_rmsnorm_empty (an empty kernel: the floor
+// under any launch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +73,16 @@ struct RmsnormArgs {
   float eps;
   int bf16, ring;  // the dtype, and the plan (1: ring, 0: rows)
   int grid, threads, stages, smem;  // the plan's; smem in bytes
+};
+
+// The backward's launch (kernels/rmsnorm.py:BackwardArgs, the same fields
+// in the same order).
+struct RmsnormBwdArgs {
+  int rows, D;        // rows of D elements; dx is contiguous
+  int64_t sx, sdy;    // x's and dy's row strides, in elements
+  float eps;
+  int bf16;
+  int grid, threads, slots, smem;  // the plan's; smem in bytes
 };
 
 namespace {
@@ -269,6 +296,186 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Backward, one pass a row. The block's `slots` rows at a time, slot s on
+// threads [s * tr, (s + 1) * tr) (tr a multiple of 32: no warp spans two
+// rows), each thread on chunks t and t + tr of its row, as the forward.
+// Block b takes rows b * slots + s, then every gridDim.x * slots rows; all
+// its threads run the same number of iterations (one __syncthreads each).
+// Dynamic shared memory: the warps' two sums for two rows
+// (float[2][kMaxWarps][2]), then, when slots > 1, float[slots][D] for the
+// block's dscale partials. At most 64 registers a thread.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    rmsnorm_bwd(const T* __restrict__ x, const T* __restrict__ scale,
+                const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ partial,
+                int rows, int D, int64_t sx, int64_t sdy, float eps, int slots) {
+  using C = Chunk<T>;
+  extern __shared__ __align__(16) float bsm[];
+  const int chunks = D / C::N;
+  const int tr = blockDim.x / slots;
+  const int slot = threadIdx.x / tr;
+  const int ts = threadIdx.x % tr;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slot_warps = tr >> 5;
+
+  uint4 sv[kVec];
+  float acc[kVec][C::N];
+  const uint4* sr = reinterpret_cast<const uint4*>(scale);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int c = ts + k * tr;
+    if (c < chunks) sv[k] = __ldg(sr + c);
+#pragma unroll
+    for (int e = 0; e < C::N; ++e) acc[k][e] = 0.f;
+  }
+
+  const int first = blockIdx.x * slots;
+  const int step = gridDim.x * slots;
+  const int n_iter = (rows - first + step - 1) / step;  // the host gives every block a row
+  for (int it = 0; it < n_iter; ++it) {
+    const int64_t row = first + static_cast<int64_t>(it) * step + slot;
+    const bool valid = row < rows;
+    uint4 xv[kVec], dv[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {  // every load in flight before any use
+      const int c = ts + k * tr;
+      if (valid && c < chunks) {
+        xv[k] = ld_once(reinterpret_cast<const uint4*>(x + row * sx) + c);
+        dv[k] = ld_once(reinterpret_cast<const uint4*>(dy + row * sdy) + c);
+      }
+    }
+    float sxx = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int c = ts + k * tr;
+      if (valid && c < chunks) {
+        float xf[C::N], df[C::N], wf[C::N];
+        C::unpack(xv[k], xf);
+        C::unpack(dv[k], df);
+        C::unpack(sv[k], wf);
+#pragma unroll
+        for (int e = 0; e < C::N; ++e) {
+          sxx += xf[e] * xf[e];
+          sgx += df[e] * (1.f + wf[e]) * xf[e];
+        }
+      }
+    }
+    // Two buffers of warp sums, as the ring forward's: a warp writes row
+    // it + 1's while a slower one may still read row it's.
+    float* red = bsm + (it & 1) * 2 * kMaxWarps;
+    sxx = warp_sum(sxx);
+    sgx = warp_sum(sgx);
+    if (lane == 0) {
+      red[2 * warp] = sxx;
+      red[2 * warp + 1] = sgx;
+    }
+    __syncthreads();
+    const int w0 = slot * slot_warps;
+    const float a = warp_sum(lane < slot_warps ? red[2 * (w0 + lane)] : 0.f);
+    const float g = warp_sum(lane < slot_warps ? red[2 * (w0 + lane) + 1] : 0.f);
+    const float r = rsqrtf(a / D + eps);
+    const float cr = r * r * g / D;  // r^2 mean(g x)
+    if (valid) {
+      uint4* drow = reinterpret_cast<uint4*>(dx + row * D);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int c = ts + k * tr;
+        if (c < chunks) {
+          float xf[C::N], df[C::N], wf[C::N], out[C::N];
+          C::unpack(xv[k], xf);
+          C::unpack(dv[k], df);
+          C::unpack(sv[k], wf);
+#pragma unroll
+          for (int e = 0; e < C::N; ++e) {
+            out[e] = r * (df[e] * (1.f + wf[e]) - xf[e] * cr);
+            acc[k][e] += df[e] * xf[e] * r;
+          }
+          drow[c] = C::pack(out);
+        }
+      }
+    }
+  }
+
+  // the block's partial row of dscale: its slots summed in a fixed order
+  float* out = partial + static_cast<int64_t>(blockIdx.x) * D;
+  float* ps = bsm + 4 * kMaxWarps;
+  float* dst = slots > 1 ? ps + slot * D : out;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int c = ts + k * tr;
+    if (c < chunks) {
+#pragma unroll
+      for (int e = 0; e < C::N; ++e) dst[c * C::N + e] = acc[k][e];
+    }
+  }
+  if (slots > 1) {
+    __syncthreads();
+    for (int col = threadIdx.x; col < D; col += blockDim.x) {
+      float v = 0.f;
+      for (int sl = 0; sl < slots; ++sl) v += ps[sl * D + col];
+      out[col] = v;
+    }
+  }
+}
+
+// dscale[col] = sum over the P partial rows, in a fixed order: 32 columns a
+// block, 32 rows of threads each summing every 32nd partial, then one row of
+// threads summing theirs.
+template <typename T>
+__global__ void rmsnorm_bwd_colsum(const float* __restrict__ partial, T* __restrict__ dscale,
+                                   int P, int D) {
+  __shared__ float part[32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float v = 0.f;
+  if (col < D)
+    for (int p = threadIdx.y; p < P; p += 32) v += partial[static_cast<int64_t>(p) * D + col];
+  part[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < D) {
+    float sum = 0.f;
+#pragma unroll 8
+    for (int y = 0; y < 32; ++y) sum += part[y][threadIdx.x];
+    dscale[col] = from_float<T>(sum);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                       float* partial, void* dscale, const RmsnormBwdArgs& a,
+                       cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  auto kern = rmsnorm_bwd<T>;
+  if (a.smem > 48 * 1024 && a.smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = a.smem;
+  }
+  kern<<<a.grid, a.threads, a.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, a.rows, a.D, a.sx, a.sdy, a.eps, a.slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_colsum<T><<<(a.D + 31) / 32, dim3(32, 32), 0, stream>>>(
+      partial, static_cast<T*>(dscale), a.grid, a.D);
+  return cudaGetLastError();
+}
+
 __global__ void empty_kernel() {}
 
 template <typename T>
@@ -316,6 +523,27 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* out,
   if (a->bf16)
     return static_cast<int>(launch<__nv_bfloat16>(x, scale, out, *a, st));
   return static_cast<int>(launch<float>(x, scale, out, *a, st));
+}
+
+// The backward: dx (contiguous, rows x D), dscale (D, scale's dtype) and
+// the scratch `partial` (fp32, grid x D). Checks only what would make the
+// launch read or write out of bounds; the Python wrapper checks the rest.
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                                 float* partial, void* dscale, const RmsnormBwdArgs* a,
+                                 void* stream) {
+  const int64_t row_bytes = static_cast<int64_t>(a->D) * (a->bf16 ? 2 : 4);
+  const int tr = a->slots > 0 ? a->threads / a->slots : 0;
+  if (a->rows <= 0 || a->D <= 0 || row_bytes % 16 || a->slots <= 0 ||
+      a->threads % a->slots || tr <= 0 || tr % 32 || a->threads > kMaxThreads ||
+      row_bytes / 16 > static_cast<int64_t>(kVec) * tr || a->grid <= 0 ||
+      static_cast<int64_t>(a->grid - 1) * a->slots >= a->rows ||
+      a->smem < 4 * kMaxWarps * 4 + (a->slots > 1 ? a->slots * a->D * 4 : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->bf16)
+    return static_cast<int>(
+        launch_bwd<__nv_bfloat16>(x, scale, dy, dx, partial, dscale, *a, st));
+  return static_cast<int>(launch_bwd<float>(x, scale, dy, dx, partial, dscale, *a, st));
 }
 
 extern "C" int repro_rmsnorm_empty(int blocks, int threads, void* stream) {

@@ -1,13 +1,16 @@
 // PTX helpers for Hopper (sm_90a): mbarriers, TMA tensor loads, wgmma
 // shared-memory descriptors and the bf16 wgmma instructions that the
 // kernels of this package use. Every helper is one or a few PTX
-// instructions; the names follow the PTX ISA.
+// instructions; the names follow the PTX ISA. On the host side, the
+// tensor-map encoder cuTensorMapEncodeTiled (encode_tiled), found through
+// the runtime's entry-point query so that no library needs -lcuda.
 //
 // wgmma and setmaxnreg exist only for sm_90a (not plain sm_90).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -138,6 +141,15 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
+}
+
+// The same for a register A fragment: an asynchronous wgmma reads it until
+// its wait_group, so a fence after the wait keeps the compiler from giving
+// its registers to anything else before then.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i]) : : "memory");
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -352,5 +364,55 @@ template <> struct Wgmma<256> {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+
+// --- host: the tensor-map encoder -----------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, or null.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B) over its
+// strides (in elements), whose box is `box_cols` columns of `rows` rows of
+// one head, written with the 128-byte swizzle (`box_cols` 64) or the 64-byte
+// one (32). Columns past hd and rows past S read as zeros.
+inline bool make_bf16_map(CUtensorMap* map, const void* base, int hd, int B, int S,
+                          int heads, int64_t sb, int64_t ss, int64_t sh, int box_cols,
+                          int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

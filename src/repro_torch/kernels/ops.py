@@ -4,26 +4,36 @@ A CPU tensor goes to the kernel's plain version. A CUDA tensor goes to the
 kernel, which launches or raises: there is no fallback. Any other device
 raises. On CUDA, a call that autograd records (grad enabled and an input
 that requires grad) goes through the kernel's ``autograd.Function``, whose
-forward launches the same kernel; every other call launches it directly,
-without autograd's host cost. Each kernel wrapper counts its launches
-(``launch_counts``), on both branches: RMSNorm in all and per launch plan
-(``rmsnorm_rows``, ``rmsnorm_ring``); attention per route (bf16 on tensor
-cores, fp32 scalar), with ``flash_attention`` their sum.
+forward launches the same kernel and whose backward launches the kernel's
+backward (K1: ``rmsnorm_bwd``; K2 bf16: ``flash_attention_bwd_bf16``, from
+the output and log-sum-exp the forward saved; K2 fp32: the closed form,
+the fp32 route having no backward kernel); every other call launches the
+forward directly, without autograd's host cost and without the LSE. The
+closed forms (``rmsnorm_backward``, ``flash_attention_backward``) are the
+backward kernels' plain versions: the CPU's gradients. Each kernel wrapper
+counts its launches (``launch_counts``), on both branches: RMSNorm in all
+and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``), its backward
+(``rmsnorm_bwd``); attention per route (bf16 on tensor cores, fp32
+scalar), with ``flash_attention`` their sum, and the bf16 backward
+(``flash_attention_bwd_bf16``).
 
 A DTensor (a parameter or activation on a ``DeviceMesh``) or a fake tensor
 (the dry run's ``FakeTensorMode``) takes neither branch: it goes through
 the kernel's custom op, ``repro_torch::rmsnorm`` or
-``repro_torch::flash_attention``. Each op has a fake implementation
-(shapes and dtypes only: under the fake mode nothing launches), an
-autograd formula (the kernel's ``*_backward``), a DTensor sharding rule
+``repro_torch::flash_attention`` (which also returns the LSE, (B, H, 0)
+unless autograd records a bf16 call), whose autograd formula calls the
+backward's op, ``repro_torch::rmsnorm_backward`` or
+``repro_torch::flash_attention_backward``, on the local shards. Each op
+has a fake implementation (shapes and dtypes only: under the fake mode
+nothing launches) and a FLOP formula (the kernel's own arithmetic, for
+``torch.utils.flop_counter``); the forward ops a DTensor sharding rule
 (K1: any dim but the last sharded; K2: batch, or heads where q's and
-k/v's head shards line up) and a FLOP formula (the kernel's own
-arithmetic, for ``torch.utils.flop_counter``). Its real implementation is
-the dispatch above on the local shard, so on a real mesh the shard
-reaches the same hand-written kernel. K2's GQA case where k/v's heads are
-replicated while q's are sharded (KV not divisible by the mesh axis) runs
-the kernel on each rank's q heads and the KV heads they read, sliced by
-the rank's mesh coordinate (``sharding.specs.heads_local``)."""
+k/v's head shards line up). Each op's real implementation is the dispatch
+above on the local shard, so on a real mesh the shard reaches the same
+hand-written kernel, forward and backward. K2's GQA case where k/v's
+heads are replicated while q's are sharded (KV not divisible by the mesh
+axis) runs the kernel on each rank's q heads and the KV heads they read,
+sliced by the rank's mesh coordinate (``sharding.specs.heads_local``)."""
 from __future__ import annotations
 
 import functools
@@ -36,8 +46,9 @@ from ..sharding.specs import heads_local, is_dtensor
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
 
-_KERNELS = {"rmsnorm": _rn.rmsnorm,
-            **{f"flash_attention_{r}": fn for r, fn in _fa.KERNELS.items()}}
+_KERNELS = {"rmsnorm": _rn.rmsnorm, "rmsnorm_bwd": _rn.rmsnorm_bwd,
+            **{f"flash_attention_{r}": fn for r, fn in _fa.KERNELS.items()},
+            "flash_attention_bwd_bf16": _fa.flash_attention_bwd_bf16}
 
 
 def _route(t, name):
@@ -72,6 +83,42 @@ def _flash_direct(q, k, v, causal):
             return _fa.FlashAttentionFunction.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal=causal)
     return _fa.flash_attention_plain(q, k, v, causal=causal)
+
+
+def _saves_lse(q, with_lse: bool) -> bool:
+    """Whether the custom op returns a real LSE: only for a bf16 call whose
+    backward (the kernel) reads it."""
+    return with_lse and q.dtype == torch.bfloat16
+
+
+def _flash_with_lse(q, k, v, causal, with_lse):
+    """(out, lse) on a plain tensor; lse (B, H, S) where ``_saves_lse``,
+    else (B, H, 0)."""
+    B, S, H, _ = q.shape
+    keep = _saves_lse(q, with_lse)
+    if _route(q, "flash_attention"):
+        lse = q.new_empty((B, H, S if keep else 0), dtype=torch.float32)
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   lse=lse if keep else None), lse
+    if keep:
+        return _fa.flash_attention_plain_lse(q, k, v, causal=causal)
+    return (_fa.flash_attention_plain(q, k, v, causal=causal),
+            q.new_empty((B, H, 0), dtype=torch.float32))
+
+
+def _rmsnorm_backward_direct(x, scale, dy, eps):
+    if _route(x, "rmsnorm"):
+        return _rn.rmsnorm_bwd(x, scale, dy, eps)
+    return _rn.rmsnorm_backward(x, scale, dy, eps)
+
+
+def _flash_backward_direct(q, k, v, out, lse, dy, causal):
+    """bf16 on CUDA: the backward kernel; fp32 on CUDA (no backward kernel)
+    and the CPU: the closed form."""
+    if _route(q, "flash_attention") and q.dtype == torch.bfloat16:
+        return _fa.flash_attention_bwd_bf16(q, k, v, out, lse, dy,
+                                            causal=causal)
+    return _fa.flash_attention_backward(q, k, v, dy, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -110,54 +157,102 @@ def _rmsnorm_bwd(ctx, dy):
                    for p in x.placements)
         x, dy = x.redistribute(mesh, pl), dy.redistribute(mesh, pl)
         scale = scale.redistribute(mesh, (Replicate(),) * mesh.ndim)
-        dxl, dsl = _rn.rmsnorm_backward(x.to_local(), scale.to_local(),
-                                        dy.to_local(), ctx.eps)
+        dxl, dsl = rmsnorm_backward_op(x.to_local(), scale.to_local(),
+                                       dy.to_local(), ctx.eps)
         dx = DTensor.from_local(dxl, mesh, pl, run_check=False,
                                 shape=x.shape, stride=x.stride())
         dscale = DTensor.from_local(
             dsl, mesh, [Partial() if p.is_shard() else p for p in pl],
             run_check=False, shape=scale.shape, stride=scale.stride())
         return dx, dscale, None
-    dx, dscale = _rn.rmsnorm_backward(x, scale, dy, ctx.eps)
+    dx, dscale = rmsnorm_backward_op(x, scale, dy, ctx.eps)
     return dx, dscale, None
 
 
 rmsnorm_op.register_autograd(_rmsnorm_bwd, setup_context=_rmsnorm_setup)
 
 
+@torch.library.custom_op("repro_torch::rmsnorm_backward", mutates_args=())
+def rmsnorm_backward_op(x: torch.Tensor, scale: torch.Tensor,
+                        dy: torch.Tensor,
+                        eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.no_grad():
+        return _rmsnorm_backward_direct(x, scale, dy, eps)
+
+
+@rmsnorm_backward_op.register_fake
+def _(x, scale, dy, eps):
+    return x.new_empty(x.shape), scale.new_empty(scale.shape)
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool) -> torch.Tensor:
+                       causal: bool,
+                       with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.no_grad():
-        return _flash_direct(q, k, v, causal).contiguous()
+        out, lse = _flash_with_lse(q, k, v, causal, with_lse)
+        return out.contiguous(), lse
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal):
-    return q.new_empty(q.shape)
+def _(q, k, v, causal, with_lse):
+    B, S, H, _ = q.shape
+    n = S if _saves_lse(q, with_lse) else 0
+    return q.new_empty(q.shape), q.new_empty((B, H, n), dtype=torch.float32)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal = inputs
-    ctx.save_for_backward(q, k, v)
+    q, k, v, causal, with_lse = inputs
+    ctx.save_for_backward(q, k, v, *output)
     ctx.causal = causal
 
 
-def _flash_bwd(ctx, dy):
-    q, k, v = ctx.saved_tensors
+def _lse_placements(pl):
+    """q's (B, S, H, hd) placements as the LSE's (B, H, S): heads are its
+    dim 1."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for p in pl:
+        if p.is_shard() and p.dim not in (0, 2):
+            raise ValueError(f"flash_attention backward: q placed {pl}, not "
+                             "by batch or heads")
+        out.append(Shard(1) if p.is_shard(2) else p)
+    return tuple(out)
+
+
+def _flash_bwd(ctx, dy, dlse):
+    q, k, v, out, lse = ctx.saved_tensors
     if is_dtensor(q):
         from torch.distributed.tensor.experimental import local_map
         # q, k, v and the output share their placements (the sharding
-        # rule's strategies): each rank's backward is its shard's
+        # rule's strategies), the LSE the same on its own dims: each rank's
+        # backward is its shard's
         pl = q.placements
         return (*local_map(
-            _fa.flash_attention_backward, out_placements=(pl, pl, pl),
-            in_placements=(pl, pl, pl, pl, None), device_mesh=q.device_mesh,
-            redistribute_inputs=True)(q, k, v, dy, ctx.causal), None)
-    return (*_fa.flash_attention_backward(q, k, v, dy, ctx.causal), None)
+            flash_attention_backward_op, out_placements=(pl, pl, pl),
+            in_placements=(pl, pl, pl, pl, _lse_placements(pl), pl, None),
+            device_mesh=q.device_mesh, redistribute_inputs=True)(
+                q, k, v, out, lse, dy, ctx.causal), None, None)
+    return (*flash_attention_backward_op(q, k, v, out, lse, dy, ctx.causal),
+            None, None)
 
 
 flash_attention_op.register_autograd(_flash_bwd, setup_context=_flash_setup)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def flash_attention_backward_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dy: torch.Tensor,
+        causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with torch.no_grad():
+        return _flash_backward_direct(q, k, v, out, lse, dy, causal)
+
+
+@flash_attention_backward_op.register_fake
+def _(q, k, v, out, lse, dy, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 @functools.cache
@@ -180,10 +275,11 @@ def _register_sharding_rules() -> None:
         return out
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _flash_sharding(q, k, v, causal):
-        return [([Replicate()], [Replicate()] * 3 + [None]),
-                ([Shard(0)], [Shard(0)] * 3 + [None]),
-                ([Shard(2)], [Shard(2)] * 3 + [None])]
+    def _flash_sharding(q, k, v, causal, with_lse):
+        # (out, lse): the LSE (B, H, S) on batch or heads with the output
+        return [([Replicate(), Replicate()], [Replicate()] * 3 + [None] * 2),
+                ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None] * 2),
+                ([Shard(2), Shard(1)], [Shard(2)] * 3 + [None] * 2)]
 
 
 @register_flop_formula(torch.ops.repro_torch.rmsnorm)
@@ -197,15 +293,41 @@ def _rmsnorm_flop(x_shape, scale_shape, eps, *args, out_shape=None,
     return 4 * n
 
 
+@register_flop_formula(torch.ops.repro_torch.rmsnorm_backward)
+def _rmsnorm_backward_flop(x_shape, *args, out_shape=None, **kwargs) -> int:
+    """Two sums (x^2, g x), g, dx's three products and dscale's two: 8
+    operations an element (as the backward bound of ``chip_smoke.py``
+    counts them)."""
+    n = 1
+    for d in x_shape:
+        n *= d
+    return 8 * n
+
+
+def _pairs(q_shape, k_shape, causal) -> int:
+    """The (query, key) pairs a kernel visits per (batch, head): all S*Sk,
+    or the S*(S+1)/2 on and below the diagonal when causal."""
+    S = q_shape[1]
+    return S * (S + 1) // 2 if causal else S * k_shape[1]
+
+
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flash_flop(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
                 **kwargs) -> int:
-    """Two products of 2 operations a multiply-add over the (query, key)
-    pairs the kernel visits: all S*S, or the S*(S+1)/2 on and below the
-    diagonal when causal."""
+    """Two products of 2 operations a multiply-add over the pairs the kernel
+    visits."""
     B, S, H, hd = q_shape
-    pairs = S * (S + 1) // 2 if causal else S * k_shape[1]
-    return 4 * B * H * hd * pairs
+    return 4 * B * H * hd * _pairs(q_shape, k_shape, causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flash_backward_flop(q_shape, k_shape, v_shape, out_shape_, lse_shape,
+                         dy_shape, causal, *args, out_shape=None,
+                         **kwargs) -> int:
+    """Five products (S recomputed, dP, dV, dK, dQ) of 2 operations a
+    multiply-add over the pairs the kernel visits: 10 hd a pair."""
+    B, S, H, hd = q_shape
+    return 10 * B * H * hd * _pairs(q_shape, k_shape, causal)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -220,6 +342,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
     if is_dtensor(q):
         _register_sharding_rules()
+        lse = _recorded(q, k, v)
         heads = 1
         for i, p in enumerate(q.placements):
             if p.is_shard(2):
@@ -228,14 +351,16 @@ def flash_attention(q, k, v, *, causal: bool = True):
             # KV heads replicated where q's are sharded: each rank's q heads
             # against the KV heads they read
             return heads_local(lambda ql, kl, vl: flash_attention_op(
-                ql, kl, vl, causal), q, k, v)
-        return flash_attention_op(q, k, v, causal)
+                ql, kl, vl, causal, lse)[0], q, k, v)
+        return flash_attention_op(q, k, v, causal, lse)[0]
     if _wrapped(q):
-        return flash_attention_op(q, k, v, causal)
+        return flash_attention_op(q, k, v, causal, _recorded(q, k, v))[0]
     return _flash_direct(q, k, v, causal)
 
 
 def launch_counts() -> dict:
+    """Launches by kernel (forward and backward), RMSNorm's by plan too,
+    and ``flash_attention``, both forward routes together."""
     counts = {name: fn.launches for name, fn in _KERNELS.items()}
     counts.update({f"rmsnorm_{name}": n
                    for name, n in _rn.rmsnorm.plan_launches.items()})

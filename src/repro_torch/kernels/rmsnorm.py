@@ -14,9 +14,12 @@ rows in 16-byte chunks, so x's base, its row stride and a row's bytes must
 be multiples of 16 (``check_bulk_copy``); other input raises ``ValueError``.
 
 ``RMSNormFunction`` makes the kernel differentiable: its forward is the
-kernel launch, its backward the closed-form gradient in torch ops
-(``rmsnorm_backward``). The Pallas kernel has no backward kernel either:
-the JAX package differentiates the XLA ops of its layers.
+kernel launch, its backward the backward kernel of the same source
+(``rmsnorm_bwd``: one pass a row for dx and a per-block dscale partial,
+then a column sum of the partials; plan ``backward_plan``). The closed
+form in torch ops, ``rmsnorm_backward``, is that kernel's plain version:
+the CPU takes it, and a CUDA tensor never does. The Pallas kernel has no
+backward: the JAX package differentiates the XLA ops of its layers.
 """
 from __future__ import annotations
 
@@ -38,7 +41,12 @@ SMEM_LIMIT = 232_448         # bytes of shared memory a block may use (227 KB)
 RED_BYTES = 2 * 32 * 4       # the ring's two buffers of per-warp sums
 RING_BYTES_PER_SM = 128 * 1024  # rows in flight on an SM, in all its blocks
 
+BWD_BLOCK_THREADS = 512     # a backward block's threads, all its row slots
+BWD_SM_THREADS = 1024       # the backward takes up to 64 registers a thread
+BWD_RED_BYTES = 4 * 32 * 4  # its two buffers of per-warp (sum x^2, sum g x)
+
 Plan = collections.namedtuple("Plan", "name grid threads stages smem")
+BwdPlan = collections.namedtuple("BwdPlan", "grid threads slots smem")
 
 
 def rmsnorm_plain(x, scale, eps: float = 1e-6):
@@ -123,6 +131,33 @@ def plan(rows: int, D: int, dtype: torch.dtype, n_sm: int) -> Plan:
     return ring_plan(rows, D, element_size, n_sm)
 
 
+@functools.lru_cache(maxsize=256)
+def backward_plan(rows: int, D: int, dtype: torch.dtype, n_sm: int) -> BwdPlan:
+    """The backward's launch for ``rows`` rows of D elements of ``dtype`` on
+    ``n_sm`` SMs. A row takes the threads a forward row does (``tr``); a
+    block holds ``slots`` rows at a time, up to ``BWD_BLOCK_THREADS``
+    threads; the grid is the blocks the card holds at once
+    (``BWD_SM_THREADS`` an SM), never more than the rows need, so every
+    block has a row. Each block writes one fp32 row of dscale partials,
+    summing its slots through ``slots * D * 4`` bytes of shared memory
+    beside the warps' sums. A pure function."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"rmsnorm kernel supports {SUPPORTED_DTYPES}, "
+                        f"got {dtype}")
+    if rows < 1 or D < 1 or n_sm < 1:
+        raise ValueError(f"no plan for rows={rows}, D={D}, n_sm={n_sm}")
+    tr = _threads(D, dtype.itemsize)
+    slots = max(1, min(BWD_BLOCK_THREADS // tr, rows))
+    threads = slots * tr
+    grid = min(n_sm * max(1, BWD_SM_THREADS // threads), -(-rows // slots))
+    smem = BWD_RED_BYTES + (slots * D * 4 if slots > 1 else 0)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"rmsnorm backward of {slots} rows of {D} needs "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    return BwdPlan(grid, threads, slots, smem)
+
+
 def check_bulk_copy(rows: int, D: int, element_size: int, row_stride: int,
                     data_ptr: int) -> None:
     """Raise ``ValueError`` naming the rule that ``rows`` rows of D elements
@@ -160,6 +195,15 @@ class LaunchArgs(ctypes.Structure):
                 ("smem", ctypes.c_int)]
 
 
+class BackwardArgs(ctypes.Structure):
+    """``RmsnormBwdArgs`` of ``csrc/rmsnorm.cu``."""
+    _fields_ = [("rows", ctypes.c_int), ("D", ctypes.c_int),
+                ("sx", ctypes.c_int64), ("sdy", ctypes.c_int64),
+                ("eps", ctypes.c_float), ("bf16", ctypes.c_int),
+                ("grid", ctypes.c_int), ("threads", ctypes.c_int),
+                ("slots", ctypes.c_int), ("smem", ctypes.c_int)]
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_args(p: Plan, rows: int, D: int, row_stride: int, eps: float,
                  bf16: bool):
@@ -176,6 +220,9 @@ def _lib():
     lib.repro_rmsnorm_fwd.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.POINTER(LaunchArgs), ctypes.c_void_p]
     lib.repro_rmsnorm_fwd.restype = ctypes.c_int
+    lib.repro_rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.POINTER(BackwardArgs), ctypes.c_void_p]
+    lib.repro_rmsnorm_bwd.restype = ctypes.c_int
     lib.repro_rmsnorm_empty.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
     lib.repro_rmsnorm_empty.restype = ctypes.c_int
@@ -248,10 +295,68 @@ rmsnorm.plan_launches = {"rows": 0, "ring": 0}
 rmsnorm.row_launches = collections.Counter()  # launches by row count
 
 
+def _readable_rows(t):
+    """t (..., D) as (rows, D) rows the kernel can read in 16-byte chunks:
+    the ``as_rows`` view where its base and row stride allow, else a
+    contiguous copy."""
+    t2 = as_rows(t)
+    rows, D = t2.shape
+    if t2.data_ptr() % ALIGN or (rows > 1 and t2.stride(0)
+                                 * t2.element_size() % ALIGN):
+        t2 = t2.contiguous()
+    return t2
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """Launch the backward kernel: ``(dx, dscale)`` of :func:`rmsnorm` for
+    the upstream gradient ``dy``, as :func:`rmsnorm_backward` computes
+    them. x, dy: (..., D) on CUDA; scale: (D,). dy is read through its row
+    stride (copied only if its rows are off the 16-byte grain). Counts one
+    launch."""
+    if not x.is_cuda or scale.get_device() != x.get_device() \
+            or dy.get_device() != x.get_device():
+        raise ValueError(f"rmsnorm backward kernel needs CUDA tensors on one "
+                         f"device, got {x.device}, {scale.device} and "
+                         f"{dy.device}")
+    if x.dtype not in SUPPORTED_DTYPES or not x.dtype == scale.dtype \
+            == dy.dtype:
+        raise TypeError(f"rmsnorm backward kernel supports x, scale and dy "
+                        f"of one dtype of {SUPPORTED_DTYPES}, got {x.dtype}, "
+                        f"{scale.dtype} and {dy.dtype}")
+    D = x.shape[-1]
+    if scale.shape != (D,) or dy.shape != x.shape:
+        raise ValueError(f"shapes x{tuple(x.shape)}, scale"
+                         f"{tuple(scale.shape)}, dy{tuple(dy.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.zeros_like(scale)
+    x2 = as_rows(x)
+    dy2 = _readable_rows(dy)
+    rows = x2.shape[0]
+    scale = scale.contiguous()
+    check_bulk_copy(rows, D, x.element_size(), x2.stride(0), x2.data_ptr())
+    check_bulk_copy(1, D, x.element_size(), D, scale.data_ptr())
+    dev = x.get_device()
+    p = backward_plan(rows, D, x.dtype, sm_count(dev))
+    dx = torch.empty((rows, D), dtype=x.dtype, device=x.device)
+    partial = torch.empty((p.grid, D), dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    args = BackwardArgs(rows, D, x2.stride(0), dy2.stride(0), eps,
+                        x.dtype == torch.bfloat16, *p)
+    _raise_on(_lib().repro_rmsnorm_bwd(
+        x2.data_ptr(), scale.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), dscale.data_ptr(), ctypes.byref(args),
+        torch._C._cuda_getCurrentRawStream(dev)), "rmsnorm backward launch")
+    rmsnorm_bwd.launches += 1
+    return dx.view(x.shape), dscale
+
+
+rmsnorm_bwd.launches = 0
+
+
 class RMSNormFunction(torch.autograd.Function):
-    """The kernel under autograd: the forward launches it (and counts the
-    launch), the backward is :func:`rmsnorm_backward` on the saved
-    inputs."""
+    """The kernel under autograd: the forward launches it, the backward
+    launches :func:`rmsnorm_bwd` on the saved inputs (each counts its
+    launch)."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
@@ -262,7 +367,7 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
+        dx, dscale = rmsnorm_bwd(x, scale, dy, ctx.eps)
         return dx, dscale, None
 
 

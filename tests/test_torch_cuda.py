@@ -533,13 +533,109 @@ def test_flash_function_gradients_match_plain(cuda_device, dtype, causal, B,
         assert gt.shape == w.shape and _rel_rms(gt, w) <= tol
 
 
+def _bwd_rel(got, want):
+    return max(_rel_rms(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 1000])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+def test_flash_backward_kernel_matches_plain(cuda_device, hd, causal, G, S):
+    """K2's bf16 backward kernel against the closed form (its plain
+    version): dq, dk and dv each within 1e-2 relative RMS (P and dS in
+    bf16), one launch a call; the forward's LSE within 1e-3 of the plain
+    one's."""
+    q, k, v = _qkv(cuda_device, 2, S, 2 * G, 2, hd, torch.bfloat16)
+    dy = torch.randn_like(q)
+    lse = tfa.new_lse(q)
+    out = tfa.flash_attention(q, k, v, causal=causal, lse=lse)
+    _, lse_ref = tfa.flash_attention_plain_lse(q, k, v, causal=causal)
+    n0 = tfa.flash_attention_bwd_bf16.launches
+    got = tfa.flash_attention_bwd_bf16(q, k, v, out, lse, dy, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_bf16.launches == n0 + 1
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = tfa.flash_attention_backward(q, k, v, dy, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+    assert _bwd_rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_backward_reads_strided_views(cuda_device):
+    """q, k, v as views of one packed tensor and dy a non-contiguous view
+    (copied, as TMA cannot step its head stride)."""
+    qkv = torch.randn(1, 300, 12, 128, device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    dy = torch.randn(1, 300, 8, 136, device=cuda_device).bfloat16()[..., :128]
+    lse = tfa.new_lse(q)
+    out = tfa.flash_attention(q, k, v, causal=True, lse=lse)
+    got = tfa.flash_attention_bwd_bf16(q, k, v, out, lse, dy, causal=True)
+    want = tfa.flash_attention_backward(q, k, v, dy, True)
+    assert _bwd_rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 768, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 133, 4097])
+def test_rmsnorm_backward_kernel_matches_plain(cuda_device, rows, D, dtype):
+    """K1's backward kernel against the closed form: dx within the
+    forward's limits (1e-5 / 3e-2), dscale within 1e-4 / 1e-2, one launch
+    a call."""
+    x, s = _norm_inputs(cuda_device, rows, D, dtype, seed=5)
+    dy = torch.randn_like(x)
+    n0 = trn.rmsnorm_bwd.launches
+    dx, ds = trn.rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_bwd.launches == n0 + 1
+    want_dx, want_ds = trn.rmsnorm_backward(x, s, dy)
+    tol_dx, tol_ds = (1e-5, 1e-4) if dtype == torch.float32 else (3e-2, 1e-2)
+    assert dx.dtype == ds.dtype == dtype
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol_dx,
+                               rtol=tol_dx)
+    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol_ds,
+                               rtol=tol_ds)
+
+
+@pytest.fixture
+def no_closed_forms(monkeypatch):
+    """The closed-form backwards made to raise: a card call that reaches
+    one fails."""
+    def refuse(*a, **k):
+        raise AssertionError("a closed-form backward ran on the card")
+    monkeypatch.setattr(tfa, "flash_attention_backward", refuse)
+    monkeypatch.setattr(trn, "rmsnorm_backward", refuse)
+
+
+@pytest.mark.cuda
+def test_one_autograd_call_launches_one_forward_and_one_backward(
+        cuda_device, no_closed_forms):
+    """ops.rmsnorm and ops.flash_attention in bf16 under autograd: exactly
+    one forward and one backward kernel launch each, and no closed form."""
+    x, s = _norm_inputs(cuda_device, 1024, 768, torch.bfloat16)
+    q, k, v = _qkv(cuda_device, 2, 256, 8, 2, 64, torch.bfloat16)
+    ops.reset_launch_counts()
+    _grads(ops.rmsnorm, (x, s))
+    _grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+           (q, k, v))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["rmsnorm"], counts["rmsnorm_bwd"],
+            counts["flash_attention_bf16"],
+            counts["flash_attention_bwd_bf16"],
+            counts["flash_attention_fp32"]) == (1, 1, 1, 1, 0)
+
+
 @pytest.mark.cuda
 def test_train_step_on_the_card_matches_the_cpu(cuda_device, no_tf32):
     """One step of reduced gpt (fp32) on the card and on the CPU from the
     same weights and batch: the loss, the gradient norm and the updated
-    parameters agree within 1e-4; the step launched both kernels, in the
-    forward only (2 norms a layer + the final one; one attention a
-    layer)."""
+    parameters agree within 1e-4; the step launched both kernels forward
+    (2 norms a layer + the final one; one attention a layer) and K1's
+    backward kernel as often (K2's fp32 route has no backward kernel)."""
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step, trainable
@@ -557,6 +653,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, no_tf32):
     assert counts["rmsnorm"] == 2 * cfg.n_layers + 1
     assert counts["flash_attention_fp32"] == cfg.n_layers
     assert counts["flash_attention_bf16"] == 0
+    assert counts["rmsnorm_bwd"] == 2 * cfg.n_layers + 1
+    assert counts["flash_attention_bwd_bf16"] == 0
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
                                    atol=0)
@@ -634,6 +732,47 @@ def test_kernels_on_dtensors_are_the_direct_calls(one_rank_mesh, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == n0 + 2
     assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.cuda
+def test_backward_on_dtensors_launches_the_kernels(one_rank_mesh,
+                                                   no_closed_forms):
+    """Gradients through the custom ops on a one-rank mesh (bf16): each
+    backward reaches its kernel on the local shards, one launch a call,
+    and gives the direct path's gradients (1e-2 relative RMS: dQ's fp32
+    atomics sum in another order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.specs import distribute
+    mesh = one_rank_mesh
+    x, s = _norm_inputs("cuda", 1024, 4096, torch.bfloat16)
+    q, k, v = _qkv("cuda", 2, 256, 8, 2, 128, torch.bfloat16)
+    _, want_norm = _grads(ops.rmsnorm, (x, s))
+    _, want_attn = _grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=True), (q, k, v))
+    xd = distribute(x, mesh, (Shard(0), Replicate()))
+    sd = distribute(s, mesh, (Replicate(), Replicate()))
+    pl = (Shard(0), Shard(2))
+    qd, kd, vd = (distribute(t, mesh, pl) for t in (q, k, v))
+    def dgrads(fn, inputs):
+        # _grads' loss, its weights placed as the output
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*xs)
+        w = torch.randn(out.shape, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda").to(out.dtype)
+        w = distribute(w, mesh, out.placements)
+        return torch.autograd.grad((out.float() * w.float()).sum(), xs)
+
+    ops.reset_launch_counts()
+    got_norm = dgrads(ops.rmsnorm, (xd, sd))
+    got_attn = dgrads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=True), (qd, kd, vd))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["rmsnorm"], counts["rmsnorm_bwd"],
+            counts["flash_attention_bf16"],
+            counts["flash_attention_bwd_bf16"]) == (1, 1, 1, 1)
+    for g, w in zip(got_norm + got_attn, want_norm + want_attn):
+        assert _rel_rms(g.full_tensor(), w) <= 1e-2
 
 
 @pytest.mark.cuda

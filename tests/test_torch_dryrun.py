@@ -263,3 +263,68 @@ def test_flash_fake_is_the_kernels_shape_and_dtype(B, S, H, KV, hd, dtype,
                             mode.from_tensor(k), causal=causal)
     pairs = S * (S + 1) // 2 if causal else S * S
     assert fc.get_total_flops() == 4 * B * H * hd * pairs
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_op_fake_and_flop_formula(dtype, causal):
+    """The forward op returns the LSE (B, H, S) only for a bf16 call that
+    keeps it for the backward kernel ((B, H, 0) otherwise); the backward
+    op's fake implementation gives the gradients' shapes and dtypes, and
+    its FLOP formula the kernel's five products, 10 hd a visited pair."""
+    from torch.utils.flop_counter import FlopCounterMode
+    B, S, H, KV, hd = 2, 48, 8, 2, 64
+    q = torch.randn(B, S, H, hd).to(dtype)
+    k = torch.randn(B, S, KV, hd).to(dtype)
+    with FakeTensorMode() as mode:
+        qf, kf = mode.from_tensor(q), mode.from_tensor(k)
+        for keep in (True, False):
+            out, lse = ops.flash_attention_op(qf, kf, kf, causal, keep)
+            n = S if keep and dtype == torch.bfloat16 else 0
+            assert (tuple(lse.shape), lse.dtype) == ((B, H, n),
+                                                     torch.float32)
+        with FlopCounterMode(display=False) as fc:
+            grads = ops.flash_attention_backward_op(qf, kf, kf, out, lse, qf,
+                                                    causal)
+    assert [(tuple(g.shape), g.dtype) for g in grads] == \
+        [((B, S, H, hd), dtype), ((B, S, KV, hd), dtype),
+         ((B, S, KV, hd), dtype)]
+    pairs = S * (S + 1) // 2 if causal else S * S
+    assert fc.get_total_flops() == 10 * B * H * hd * pairs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_op_fake_and_flop_formula(dtype):
+    from torch.utils.flop_counter import FlopCounterMode
+    x = torch.randn(3, 5, 256).to(dtype)
+    s = torch.randn(256).to(dtype)
+    with FakeTensorMode() as mode, FlopCounterMode(display=False) as fc:
+        xf = mode.from_tensor(x)
+        dx, ds = ops.rmsnorm_backward_op(xf, mode.from_tensor(s), xf, 1e-6)
+    assert (tuple(dx.shape), dx.dtype, tuple(ds.shape), ds.dtype) == \
+        ((3, 5, 256), dtype, (256,), dtype)
+    assert fc.get_total_flops() == 8 * x.numel()
+
+
+def test_train_trace_counts_the_backward_ops():
+    """A traced train step (reduced gpt, one rank, fake tensors) counts the
+    backward ops by their own FLOP formulas: K2's backward 10 / 4 of its
+    forward's, K1's 2 x its forward's."""
+    cfg = treg.load_config("gpt").reduced()
+    with FakeTensorMode():
+        model = treg.build_model(cfg, "cpu")
+        for p in model.parameters():
+            p.requires_grad_(True)
+        tokens = torch.zeros((2, 64), dtype=torch.int32)
+
+        def step():
+            logits = treg.forward(model, {"tokens": tokens})[0]
+            return torch.autograd.grad(logits.float().sum(),
+                                       list(model.parameters()))
+        ops.reset_launch_counts()
+        _, trace = dryrun.count(step, (list(model.parameters()), tokens))
+    assert all(n == 0 for n in ops.launch_counts().values())
+    by = trace.by_op
+    assert by["repro_torch.flash_attention_backward"] * 4 == \
+        by["repro_torch.flash_attention"] * 10
+    assert by["repro_torch.rmsnorm_backward"] == 2 * by["repro_torch.rmsnorm"]

@@ -1,9 +1,11 @@
 """The port's training path against the JAX package's, on the CPU.
 
 * gradient formulas: ``rmsnorm_backward`` and ``flash_attention_backward``
-  (the backward of the kernels' autograd Functions) against ``jax.vjp`` of
-  ``repro.kernels.ref``'s oracles, fp32 within 1e-5: causal and not, GQA,
-  hd 32/64/128;
+  (the closed forms: the backward kernels' plain versions) against
+  ``jax.vjp`` of ``repro.kernels.ref``'s oracles, fp32 within 1e-5: causal
+  and not, GQA, hd 32/64/128; and the same through the kernels' custom ops
+  (the path DTensors and fake tensors take: the forward op's LSE, the
+  backward ops), on CPU tensors;
 * the train step: the same weights (``convert.from_jax``) and the same
   ``SyntheticTextDataset``-style batch through the port's
   ``make_grad_fn`` / ``make_train_step`` and JAX's ``jax.value_and_grad``
@@ -44,7 +46,9 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.checkpoint import _msgpack
 from repro_torch.data import SyntheticTextDataset
-from repro_torch.kernels.flash_attention import flash_attention_backward
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                 flash_attention_plain_lse)
 from repro_torch.kernels.rmsnorm import rmsnorm_backward
 from repro_torch.launch import train as train_cli
 from repro_torch.models import convert, registry
@@ -113,6 +117,48 @@ def test_flash_attention_backward_is_the_vjp(B, S, H, KV, hd, causal):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_custom_op_gradients_are_the_vjp(causal):
+    """Through ``repro_torch::flash_attention`` and ``repro_torch::rmsnorm``
+    under autograd (their backward ops, CPU: the closed forms): fp32
+    gradients within 1e-5 of ``jax.vjp``; the forward op keeps no LSE for
+    fp32 and, for bf16, the plain LSE with the plain output, launching
+    nothing."""
+    B, S, H, KV, hd = 2, 40, 4, 2, 32
+    rng = np.random.default_rng(4)
+    q, k, v, dy = (rng.standard_normal((B, S, n, hd)).astype(np.float32)
+                   for n in (H, KV, KV, H))
+    ops.reset_launch_counts()
+    qt, kt, vt = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    out, lse = ops.flash_attention_op(qt, kt, vt, causal, True)
+    assert lse.shape == (B, H, 0)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dy))
+
+    def ref(q, k, v):
+        return flash_attention_ref(q, jnp.repeat(k, H // KV, axis=2),
+                                   jnp.repeat(v, H // KV, axis=2),
+                                   causal=causal)
+    _, vjp = jax.vjp(ref, *map(jnp.asarray, (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(dy))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    qb, kb, vb = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
+    out, lse = ops.flash_attention_op(qb, kb, vb, causal, True)
+    want_out, want_lse = flash_attention_plain_lse(qb, kb, vb, causal=causal)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    x = rng.standard_normal((3, 7, 64)).astype(np.float32)
+    sc = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    dx = rng.standard_normal((3, 7, 64)).astype(np.float32)
+    xt, st = (torch.from_numpy(t).requires_grad_(True) for t in (x, sc))
+    got = torch.autograd.grad(ops.rmsnorm_op(xt, st, 1e-6), (xt, st),
+                              torch.from_numpy(dx))
+    _, vjp = jax.vjp(rmsnorm_ref, jnp.asarray(x), jnp.asarray(sc))
+    for g, w in zip(got, vjp(jnp.asarray(dx))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    assert all(n == 0 for n in ops.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
