@@ -17,8 +17,12 @@ kernel tests' shapes, at yi-9b's own and at gemma3-12b's global layers'
 8 at hd 112 in both routes, whisper's encoder of 1500 frames not causal
 and its decoder, qwen2-vl's 12 over 2 at 1024 patches + 256 tokens,
 gemma3-27b's global layers' 32 over 16 and command-r's 64 over 8 at hd
-128, both at 4 x 256 and 1 x 4096; K1 in bf16 at D = 1024, 1536, 2048,
-2560, 5376, 7168 and 8192), in float32 and
+128, both at 4 x 256 and 1 x 4096; K2 with a causal sliding window at
+the windowed layers' long-prefill shapes: gemma3-12b's local 16 over 8
+at hd 256 and gemma3-27b's 32 over 16 at hd 128, window 1024, mixtral's
+32 over 8 with its window of 4096, recurrentgemma's 10 over 1 at hd 256,
+window 2048, and a window of 333 over a ragged S of 1000; K1 in bf16 at
+D = 1024, 1536, 2048, 2560, 5376, 7168 and 8192), in float32 and
 bfloat16 (RMSNorm: both launch
 plans at every shape; attention: two routes, bf16 on the tensor cores and
 float32 scalar), and times the kernel, the plain version and one PyTorch
@@ -38,8 +42,10 @@ the bf16 attention route 48 per prefill (144 in all), the float32 route
 never. Phase 3 profiles the two prefills and four decode steps
 (torch.profiler) and prints the device busy share, the kernels that take
 the most time, K1's, K2's and the plain attention path's share (that
-path is what windowed layers take), then the same for one 1 x 4096
-prefill of gemma3-12b at full width. Phase 6 (run before phase 4, one
+path is what cross-attention and explicit positions take), then the
+same for one 1 x 4096 prefill of gemma3-12b at full width, whose 40
+local layers now reach K2 with their window (48 K2 launches a prefill,
+exactly). Phase 6 (run before phase 4, one
 model resident at a time) serves the eight other configs at full width
 in bfloat16 from seed 0: mamba2-1.3b, recurrentgemma-2b, qwen2-vl-2b
 (1024 patch embeddings in front of the text), whisper-medium (1500
@@ -54,8 +60,9 @@ makes them differ by design; mamba2 and recurrentgemma, whose bf16 decode
 rounds where their prefill does not in the reference too, within
 SEQ_VS_PAR_BF16_GAP, and the same weights in float32 within
 SEQ_VS_PAR_REL_RMS_FP32) and exactly the launches the path makes
-(``expected_launches``); the 16-layer mixtral's long prefill is
-profiled as gemma3-12b's. Every shape and dtype the phase gave a kernel
+(``expected_launches``: K2 at every self-attention layer of a forward,
+windowed or not); the long prefills of the 16-layer mixtral, gemma3-27b
+and recurrentgemma are profiled as gemma3-12b's. Every shape and dtype the phase gave a kernel
 is recorded, and afterwards each kernel is held against its plain
 version at each of them (``check_path_shapes``). Phase 4 drives the verifier's main path
 (repro_torch.api.verify on cuda): every registered case at every
@@ -111,10 +118,12 @@ launch no kernel; tp_decode@2 on 2 spawned workers must give the
 in-process stable summary byte for byte; and the explain smoke's three
 legs (python -m repro_torch.launch.explain_smoke) must pass on the card.
 Phase 9 (run after phase 6) trains on the card. First each backward
-kernel against its plain version (the closed form): K2's bf16 backward
-at head dims 32, 64, 112, 128 and 256, causal and not, G = H / KV of 1,
-2 and 8, S = 1024 and the ragged 1000 (dq, dk and dv each within 1e-2
-relative RMS, the saved LSE within 1e-3), K1's in fp32 and bf16 over
+kernel against its plain version (the closed form): K2's bf16 and fp32
+backward at head dims 32, 64, 112, 128 and 256, causal and not, G = H /
+KV of 1, 2 and 8, S = 1024 and the ragged 1000, and at the windowed
+shapes of phase 1 with their windows (dq, dk and dv each within 1e-2
+relative RMS in bf16, 2e-4 in fp32; the saved LSE within 1e-3 and
+1e-5), K1's in fp32 and bf16 over
 widths 128-8192 and 1-8192 rows (dx as the forward's 1e-5 / 3e-2,
 dscale 1e-4 / 1e-2). Then gpt at full width and depth (12 x 768, vocab
 50257, bf16, seed 0) for 50 steps of 8 x 1024 tokens through
@@ -124,15 +133,15 @@ step and, in the backward, 25 RMSNorm and 12 bf16 attention backward
 kernel launches; the mean loss of the last 5 steps below the first
 step's); the same model's gradients on one batch of 2 x 1024 against
 autograd through the plain versions on the card, in float32 (the
-attention's float32 route, whose backward is the closed form; loss
-within 1e-5 relative, every parameter's gradient within 2e-4 relative
-RMS) and bf16 (loss within 1e-2, gradient norm within 2e-2); yi-9b at
+attention's float32 route and its backward kernel; loss within 1e-5
+relative, every parameter's gradient within 2e-4 relative RMS) and bf16 (loss within 1e-2, gradient norm within 2e-2); yi-9b at
 full width, 8 of its 48 layers (AdamW's ~12 bytes a parameter would not
 fit 48), 2 steps of 1 x 4096 tokens in bf16 (17 / 8 forward and backward
 launches a step), profiled for the share of a step's device time in each
 backward kernel by its kernels' names, and its peak memory;
 launch.train's own main for 20 steps of the reduced config (float32: 5
-RMSNorm backward launches a step, no bf16 attention backward); then
+RMSNorm and 2 fp32 attention backward launches a step, no bf16
+attention backward); then
 each kernel at gpt's, yi-9b's and the reduced config's shapes, forward
 and backward, against its plain version and the PyTorch call (F.rms_norm,
 scaled_dot_product_attention, and their backward) beside its bound.
@@ -154,10 +163,20 @@ with no kernel launched and no exception.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
 qwen2-vl's, gemma3-27b's and command-r's shapes carry the launches of
-their model's phase-6 path; the training shapes those of phase 9's). Any failure raises and exits non-zero, and
+their model's phase-6 path, K2 with a window those of its model's
+windowed path (gemma3-12b: phase 3's); the training shapes those of phase
+9's). Any failure raises and exits non-zero, and
 the script exits non-zero without a CUDA device. The backward kernels
 have entries of their own (ms the kernel's, plain_ms the closed form's,
 library_ms the PyTorch call's backward).
+
+    python3 chip_smoke.py --windowed-profiles
+
+profiles only the long prefills of the windowed models (gemma3-12b,
+gemma3-27b, recurrentgemma-2b and the 16-layer mixtral) for the plain
+attention path's and K2's share of device time, with the package beside
+the script: a copy of this file beside another tree's ``src`` measures
+that tree.
 """
 import contextlib
 import copy
@@ -192,6 +211,7 @@ N_NORMS = 2 * N_LAYERS + 1             # RMSNorm calls a forward or step makes
 D_MODEL = 4096                         # yi-9b
 BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
 BF16_BWD_LIB = "flash_attention_bwd_sm90"  # and of its backward
+FP32_BWD_LIB = "flash_attention_bwd"       # the fp32 route's backward
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
 # two paths round at different places (the flash kernel's tiled online
 # softmax vs the decode attention's one pass, GEMM vs GEMV summation order)
@@ -253,6 +273,25 @@ GEMMA27_ATTN = [(B, S, 32, 16, 128) for B, S in ((B_PROMPT, S_PROMPT),
                                                  (1, S_LONG))]
 CMDR_ATTN = [(B, S, 64, 8, 128) for B, S in ((B_PROMPT, S_PROMPT),
                                              (1, S_LONG))]
+# K2 with a causal sliding window at the windowed families' long-prefill
+# shapes (tag, (B, S, H, KV, hd), window, dtypes, timed): gemma3-12b's and
+# gemma3-27b's local layers, mixtral's (its window of 4096 is S: the causal
+# mask alone), recurrentgemma's local layers, and a window that is no tile
+# multiple over a ragged S
+WINDOW_ATTN = (
+    ("gemma3_12b_local", (1, S_LONG, 16, 8, 256), 1024,
+     (torch.bfloat16, torch.float32), True),
+    ("gemma3_27b_local", (1, S_LONG, 32, 16, 128), 1024, (torch.bfloat16,),
+     True),
+    ("mixtral", (1, S_LONG, 32, 8, 128), 4096, (torch.bfloat16,), True),
+    ("recurrentgemma_local", (1, S_LONG, 10, 1, 256), 2048,
+     (torch.bfloat16,), True),
+    ("ragged", (2, 1000, 8, 2, 128), 333, (torch.bfloat16, torch.float32),
+     False))
+# the windowed models whose long prefill is profiled for the plain
+# attention path's share (phase 3: gemma3-12b; phase 6: the others)
+WINDOWED_ARCHS = ("gemma3-12b", "gemma3-27b", "recurrentgemma-2b",
+                  "mixtral-8x7b")
 
 
 def check(cond, msg):
@@ -359,6 +398,15 @@ def phase0():
                       f"{n_sm} SMs: {p.stages} stages of {D * dt.itemsize} "
                       f"bytes, {p.smem} bytes of dynamic shared memory a "
                       f"block, grid {p.grid} x {p.threads} threads")
+    smem_bytes = ctypes.CDLL(str(libs[FP32_BWD_LIB])) \
+        .repro_flash_attention_bwd_smem_bytes
+    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for dq in (0, 1):
+        smem = {hd: smem_bytes(hd, dq) for hd in (32, 64, 112, 128, 256)}
+        print(f"[smem] {FP32_BWD_LIB} {'dQ' if dq else 'dK/dV'} kernel: "
+              f"dynamic shared memory a block, by head dim: {smem}")
+        check(all(0 < n <= rn.SMEM_LIMIT for n in smem.values()),
+              f"{FP32_BWD_LIB} shared memory {smem} beyond a block's")
     for name in (BF16_LIB, BF16_BWD_LIB):
         sass = subprocess.run([cuobjdump(), "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
@@ -380,8 +428,71 @@ def phase0():
     return smi
 
 
+def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
+    """K2 (the route of ``dt``) at ``shape`` = (B, S, H, KV, hd), causal or
+    not, with a causal sliding window of ``window`` keys (0: none), against
+    its plain version: fp32 within the JAX test's 2e-4 (abs + rel; sum
+    order); bf16 each output row (b, s, h) within 1e-2 relative error
+    ||got - want|| / ||want||, as the kernel rounds P to bf16 before P @ V
+    and both sides round the output to bf16 (an absolute limit would exceed
+    the outputs themselves at long S: a causal row i averages i+1 values).
+    ``timed``: the kernel, the plain version and SDPA (with the boolean
+    window mask where there is a window: SDPA's flash backend takes none)
+    by CUDA events, the host's time to enqueue one call (48 in a row, as a
+    forward's layers), and the bound over the pairs the mask lets
+    through."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    B, S, H, KV, hd = shape
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}",
+               shape=[B, S, H, KV, hd], causal=causal, dtype=str(dt))
+    if window:
+        rec.update(window=window, tag=tag)
+    if dt == torch.float32:
+        rec["max_abs_err"] = max_err(got, want, 2e-4)
+        rec["tol"] = 2e-4
+    else:
+        rel = row_rel_err(got, want)
+        check(rel <= 1e-2, f"results disagree: worst row relative error "
+              f"{rel} beyond 1e-2 at {rec}")
+        rec["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        rec["row_rel_err"], rec["row_rel_tol"] = rel, 1e-2
+    del want
+    if timed:
+        it = 5 if S >= 4096 else 20
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = fa.key_mask(S, S, causal, window, q.device) if window \
+            else None
+        rec["ms"] = time_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window), it, flush)
+        rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window), it, flush)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True)
+        rec["library_ms"] = time_ms(sdpa, it, flush)
+        rec["host_us"] = host_us(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window))
+        rec["library_host_us"] = host_us(sdpa)
+        pairs = B * H * ops.attention_pairs(S, S, causal, window)
+        rec["pairs"] = pairs
+        rec["bound_ms"], rec["bound_by"] = bound(
+            q.element_size() * 2 * B * S * hd * (H + KV), 4 * hd * pairs, dt)
+        rec["tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    print(f"[K2 {rec['kernel']}] {json.dumps(rec)}")
+    return rec
+
+
 def phase1(peaks):
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    from repro_torch.kernels import rmsnorm as rn
     bw, bf16_rate, f32_rate = peaks
     rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -484,19 +595,12 @@ def phase1(peaks):
     # encoder (16 heads, 1500 frames, not causal) and decoder
     # self-attention, qwen2-vl's (12 over 2, 1024 patches + 256 text), and
     # gemma3-27b's (32 over 16) and command-r's (64 over 8) global layers
-    # at 4 x 256 and 1 x 4096.
-    # fp32: the JAX test's 2e-4 (abs + rel; summation order). bf16: the
-    # kernel rounds P to bf16 before P @ V and both it and the plain
-    # version round the output to bf16, so an element differs by a few
-    # bf16 ulps (2^-8 of itself) at most (worst row ~4e-3 in the CPU
-    # emulation, tests/test_torch_kernels.py). An absolute limit would
-    # exceed the outputs themselves at long S (a causal row i averages i+1
-    # values, std ~(i+1)^-0.5), so each output row (b, s, h) is held by its
-    # relative error ||got - want|| / ||want|| <= 1e-2, scaled to its own
-    # magnitude.
+    # at 4 x 256 and 1 x 4096; then the windowed layers (WINDOW_ATTN). The
+    # limits are k2_record's (the bf16 worst row ~4e-3 in the CPU
+    # emulation, tests/test_torch_kernels.py).
     bf16 = (torch.bfloat16,)
     tf, t, f = (True, False), (True,), (False,)
-    for (B, S, H, KV, hd), timed, dts, causals in [
+    for shape, timed, dts, causals in [
             ((1, 128, 2, 2, 64), False, both, tf),
             ((2, 256, 1, 1, 32), False, both, tf),
             ((1, 64, 4, 4, 128), False, both, tf),
@@ -510,56 +614,13 @@ def phase1(peaks):
             (shape, True, bf16, t) for shape in GEMMA27_ATTN + CMDR_ATTN]:
         for causal in causals:
             for dt in dts:
-                q = torch.randn((B, S, H, hd), generator=g,
-                                device="cuda").to(dt)
-                k = torch.randn((B, S, KV, hd), generator=g,
-                                device="cuda").to(dt)
-                v = torch.randn((B, S, KV, hd), generator=g,
-                                device="cuda").to(dt)
-                got = fa.flash_attention(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                want = fa.flash_attention_plain(q, k, v, causal=causal)
-                rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}",
-                           shape=[B, S, H, KV, hd], causal=causal,
-                           dtype=str(dt))
-                if dt == torch.float32:
-                    rec["max_abs_err"] = max_err(got, want, 2e-4)
-                    rec["tol"] = 2e-4
-                else:
-                    rel = row_rel_err(got, want)
-                    check(rel <= 1e-2, f"results disagree: worst row "
-                          f"relative error {rel} beyond 1e-2")
-                    rec["max_abs_err"] = (got.float() - want.float()).abs() \
-                        .max().item()
-                    rec["row_rel_err"], rec["row_rel_tol"] = rel, 1e-2
-                del want
-                if timed:
-                    it = 5 if S >= 4096 else 20
-                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                    rec["ms"] = time_ms(
-                        lambda: fa.flash_attention(q, k, v, causal=causal),
-                        it, flush)
-                    rec["plain_ms"] = time_ms(
-                        lambda: fa.flash_attention_plain(q, k, v,
-                                                         causal=causal),
-                        it, flush)
-                    def sdpa():
-                        return F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=causal, enable_gqa=True)
-                    rec["library_ms"] = time_ms(sdpa, it, flush)
-                    # host cost of one call, as a forward's 48 layers pay it
-                    rec["host_us"] = host_us(
-                        lambda: fa.flash_attention(q, k, v, causal=causal))
-                    rec["library_host_us"] = host_us(sdpa)
-                    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-                    rec["bound_ms"], rec["bound_by"] = bound(
-                        q.element_size() * 2 * B * S * hd * (H + KV),
-                        4 * hd * pairs, dt)
-                    rec["tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
-                    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-                records.append(rec)
-                print(f"[K2 {rec['kernel']}] {json.dumps(rec)}")
-                del q, k, v, got
+                records.append(k2_record(shape, causal, 0, dt, timed, g,
+                                         flush, bound))
+    # the windowed layers' shapes, each with its window (causal)
+    for tag, shape, window, dts, timed in WINDOW_ATTN:
+        for dt in dts:
+            records.append(k2_record(shape, True, window, dt, timed, g, flush,
+                                     bound, tag=tag))
     return records
 
 
@@ -782,23 +843,45 @@ def phase3(model, prompts, long_prompt):
         profile_run(name, fn)
 
 
-def phase3_windowed():
-    """The plain windowed attention's share of a long prefill: gemma3-12b
-    at full width and depth (40 of its 48 layers are local, window 1024),
-    one B=1 x 4096 prefill under the profiler. (The 16-layer mixtral, every
-    layer windowed, is profiled in phase 6.)"""
+def windowed_prefill(arch, smi):
+    """The plain attention path's and K2's share of a windowed model's long
+    prefill: ``arch`` at full width (mixtral cut to DEPTH_CUTS' depth) in
+    bf16 from seed 0, one B=1 x 4096 prefill under the profiler
+    (``profile_run``: a warm call, then the profiled one), and the kernels'
+    launches over both calls (``kernels.ops.launch_counts``)."""
+    from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.train import serve
-    cfg = registry.load_config("gemma3-12b")
+    full = registry.load_config(arch)
+    cfg = dataclasses.replace(full, n_layers=DEPTH_CUTS.get(arch,
+                                                            full.n_layers))
     model = registry.init_params(cfg, seed=0)
     tokens = torch.randint(0, cfg.vocab, (1, S_LONG), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(1))
-    out = profile_run("gemma3-12b prefill 1x4096",
+    ops.reset_launch_counts()
+    out = profile_run(f"{arch} ({cfg.n_layers} layers) prefill 1x4096",
                       lambda: serve.prefill_logits(model, {"tokens": tokens}))
+    out.update(arch=arch, layers=cfg.n_layers, launches=ops.launch_counts(),
+               card=smi)
     print(f"[profile] {json.dumps(out)}")
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+def phase3_windowed(smi):
+    """gemma3-12b (40 of its 48 layers local, window 1024; the other
+    windowed models are profiled in phase 6): its long prefill's plain
+    attention share, which reads ~0 now that the windowed layers reach K2,
+    and K2's launches, exactly 48 a prefill."""
+    out = windowed_prefill("gemma3-12b", smi)
+    check(out["launches"]["flash_attention_bf16"] == 2 * 48,
+          f"gemma3-12b: K2 launched {out['launches']} over 2 prefills, "
+          f"not 2 x 48")
+    check(out["launches"]["flash_attention_fp32"] == 0,
+          "gemma3-12b: the float32 attention route ran on the bf16 path")
+    return out
 
 
 def expected_launches(cfg, n_prefills, seq_len, n_decode):
@@ -809,18 +892,18 @@ def expected_launches(cfg, n_prefills, seq_len, n_decode):
     pre_mlp norms included); whisper 3 a decoder layer + 2 an encoder layer
     + enc_norm + final_norm a forward, 3 a layer + 1 a step, and
     sequential prefill encodes the frames once (2 E + 1). K2 takes every
-    global layer of a forward, whisper's encoder and decoder
+    self-attention layer of a forward, windowed (local) or global
+    (recurrentgemma's local ones, none of mamba2), whisper's encoder and decoder
     self-attention, and nothing of a decode step or a cross-attention."""
     L, E = cfg.n_layers, cfg.encoder_layers
     if cfg.family == "audio":
         return (n_prefills * (3 * L + 2 * E + 2) + (seq_len + n_decode)
                 * (3 * L + 1) + 2 * E + 1,
                 n_prefills * (E + L) + E)
-    globals_ = sum(cfg.pattern[i % len(cfg.pattern)] == "global"
-                   for i in range(L)) if cfg.family in ("dense", "vlm",
-                                                         "moe") else 0
+    attn = sum(cfg.pattern[i % len(cfg.pattern)] in ("global", "local")
+               for i in range(L))
     return ((n_prefills + seq_len + n_decode) * (2 * L + 1),
-            n_prefills * globals_)
+            n_prefills * attn)
 
 
 def serve_family(arch, drops):
@@ -919,6 +1002,10 @@ def serve_family(arch, drops):
         decode_tok_s=B_PROMPT * N_FAMILY_DECODE / t_dec, peak_mem_gb=peak_gb,
         launches=counts, want_rmsnorm=want_k1, want_flash_bf16=want_k2,
         rel_rms_seq_vs_par=rel_rms, top1_seq_vs_par=top1)
+    if arch in WINDOWED_ARCHS:   # in bf16, before the fp32 check below
+        out["profile"] = profile_run(
+            f"{arch} ({cfg.n_layers} layers) prefill 1x4096",
+            lambda: serve.prefill_logits(model, long))
     if cfg.family == "moe":
         out["dropped_share"] = {
             path: sum(int(d) for d, _ in v) / sum(n for _, n in v)
@@ -954,10 +1041,6 @@ def serve_family(arch, drops):
           f"{counts['flash_attention_bf16']} times, not {want_k2}")
     check(counts["flash_attention_fp32"] == 0,
           f"{arch}: the float32 attention route ran on the bf16 path")
-    if arch == "mixtral-8x7b":
-        out["profile"] = profile_run(
-            f"{arch} ({cfg.n_layers} layers) prefill 1x4096",
-            lambda: serve.prefill_logits(model, long))
     del model, cache, logits, long_logits, par, seq_logits
     torch.cuda.empty_cache()
     return out
@@ -990,11 +1073,11 @@ def phase6_families():
                   x.dtype, eps))
         return real_norm(x, scale, eps)
 
-    def flash_attention(q, k, v, *, causal=True):
+    def flash_attention(q, k, v, *, causal=True, window=0):
         seen.add(("flash_attention", tuple(q.shape[:3]) + (k.shape[2],
                                                            q.shape[3]),
-                  q.dtype, causal))
-        return real_fa(q, k, v, causal=causal)
+                  q.dtype, (causal, window)))
+        return real_fa(q, k, v, causal=causal, window=window)
 
     moe.route, ops.rmsnorm, ops.flash_attention = route, rmsnorm, \
         flash_attention
@@ -1018,7 +1101,7 @@ def phase6_families():
 
 def check_path_shapes(seen):
     """Each kernel against its plain version at every (shape, dtype, eps or
-    causal) that phase 6 gave it, on inputs from a seeded generator, with
+    (causal, window)) that phase 6 gave it, on inputs from a seeded generator, with
     phase 1's tolerances: K1 1e-5 (fp32) or 3e-2 (one bf16 output ulp)
     absolute; K2 fp32 2e-4 absolute + relative, bf16 the worst output
     row's relative error within 1e-2."""
@@ -1040,14 +1123,15 @@ def check_path_shapes(seen):
             q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dt)
             k, v = (torch.randn((B, S, KV, hd), generator=g,
                                 device="cuda").to(dt) for _ in range(2))
-            got = fa.flash_attention(q, k, v, causal=arg)
-            want = fa.flash_attention_plain(q, k, v, causal=arg)
+            got = fa.flash_attention(q, k, v, causal=arg[0], window=arg[1])
+            want = fa.flash_attention_plain(q, k, v, causal=arg[0],
+                                            window=arg[1])
             if dt == torch.float32:
                 tol, err = 2e-4, max_err(got, want, 2e-4)
             else:
                 tol, err = 1e-2, row_rel_err(got, want)
-                check(err <= tol, f"{kind} {shape} causal={arg}: worst row "
-                      f"relative error {err} beyond {tol}")
+                check(err <= tol, f"{kind} {shape} (causal, window)={arg}: "
+                      f"worst row relative error {err} beyond {tol}")
             del q, k, v, got, want
         key = f"{kind} {dt}"
         worst[key] = max(worst.get(key, 0.0), err)
@@ -1675,8 +1759,8 @@ def plain_kernels():
     from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn
     saved = ops.rmsnorm, ops.flash_attention
     ops.rmsnorm = lambda x, s, eps=1e-6: rn.rmsnorm_plain(x, s, eps)
-    ops.flash_attention = lambda q, k, v, *, causal=True: \
-        fa.flash_attention_plain(q, k, v, causal=causal)
+    ops.flash_attention = lambda q, k, v, *, causal=True, window=0: \
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     try:
         yield
     finally:
@@ -1684,11 +1768,14 @@ def plain_kernels():
 
 
 # The backward kernels' device kernels, by the names the profiler gives
-# them: K2's prologue (delta, LSE), main kernel and dQ cast; K1's pass and
-# its column sum (both named rmsnorm_bwd*)
+# them: K2 bf16's prologue (delta, LSE), main kernel and dQ kernel; K2
+# fp32's delta, dK/dV and dQ kernels; K1's pass and its column sum (both
+# named rmsnorm_bwd*)
 BWD_KERNEL_NAMES = {"flash_attention_bwd_bf16": ("bwd_prologue",
                                                  "flash_bwd_sm90",
                                                  "flash_bwd_dq_sm90"),
+                    "flash_attention_bwd_fp32": ("bwd_delta", "flash_bwd_dkdv",
+                                                 "flash_bwd_dq<"),
                     "rmsnorm_bwd": ("rmsnorm_bwd",)}
 
 
@@ -1706,7 +1793,9 @@ BWD_HEAD_DIMS = (32, 64, 112, 128, 256)
 BWD_GROUPS = (1, 2, 8)
 BWD_SEQS = (1024, 1000)
 BWD_REL_RMS = 1e-2           # each of dq, dk, dv (bf16; P and dS in bf16)
-LSE_ABS = 1e-3               # the forward's saved log-sum-exp
+BWD_REL_RMS_FP32 = 2e-4      # the same in fp32 (scalar fp32 throughout)
+LSE_ABS = 1e-3               # the forward's saved log-sum-exp (bf16 route)
+LSE_ABS_FP32 = 1e-5          # and the fp32 route's
 BWD_NORM_WIDTHS = (128, 768, 1024, 2048, 4096, 5376, 8192)
 BWD_NORM_ROWS = (1, 4, 133, 1000, 8192)
 # K1's backward limits: dx as the forward's (fp32 1e-5, bf16 3e-2), dscale
@@ -1720,40 +1809,49 @@ def backward_kernel_checks(smi):
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     g = torch.Generator(device="cuda").manual_seed(5)
     t = time.perf_counter()
-    worst = dict(dq=0.0, dk=0.0, dv=0.0, lse_abs=0.0)
+    worst = {r: dict(dq=0.0, dk=0.0, dv=0.0, lse_abs=0.0)
+             for r in ("bf16", "fp32", "bf16_window", "fp32_window")}
     n_attn = 0
-    for hd in BWD_HEAD_DIMS:
-        for G in BWD_GROUPS:
-            for causal in (True, False):
-                for S in BWD_SEQS:
-                    B, KV = 2, 2
-                    q, k, v, dy = (
-                        torch.randn(shape, generator=g, device="cuda")
-                        .bfloat16() for shape in (
-                            (B, S, KV * G, hd), (B, S, KV, hd),
-                            (B, S, KV, hd), (B, S, KV * G, hd)))
-                    lse = fa.new_lse(q)
-                    out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
-                    _, lse_ref = fa.flash_attention_plain_lse(
-                        q, k, v, causal=causal)
-                    got = fa.flash_attention_bwd_bf16(q, k, v, out, lse, dy,
-                                                      causal=causal)
-                    want = fa.flash_attention_backward(q, k, v, dy, causal)
-                    torch.cuda.synchronize()
-                    what = f"hd {hd} G {G} causal {causal} S {S}"
-                    err = (lse - lse_ref).abs().max().item()
-                    check(err <= LSE_ABS, f"K2 LSE {what}: {err}")
-                    worst["lse_abs"] = max(worst["lse_abs"], err)
-                    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                        check(a.shape == b.shape and a.dtype == b.dtype,
-                              f"K2 backward {name} {what}: {a.shape} "
-                              f"{a.dtype}")
-                        rel = _rel_rms(a, b)
-                        check(rel <= BWD_REL_RMS, f"K2 backward {name} "
-                              f"{what}: relative RMS {rel} beyond "
-                              f"{BWD_REL_RMS}")
-                        worst[name] = max(worst[name], rel)
-                    n_attn += 1
+    # both routes at every head dim, causal and not, each G, whole and
+    # ragged S; then the windowed layers' shapes (WINDOW_ATTN) with their
+    # windows in each route they take
+    cases = [((2, S, 2 * G, 2, hd), causal, 0, dt)
+             for dt in (torch.bfloat16, torch.float32)
+             for hd in BWD_HEAD_DIMS for G in BWD_GROUPS
+             for causal in (True, False) for S in BWD_SEQS]
+    cases += [(shape, True, window, dt)
+              for _, shape, window, dts, _ in WINDOW_ATTN for dt in dts]
+    for (B, S, H, KV, hd), causal, window, dt in cases:
+        q, k, v, dy = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                       for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                     (B, S, KV, hd), (B, S, H, hd)))
+        route = fa.ROUTES[dt]
+        lse = fa.new_lse(q)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 lse=lse)
+        _, lse_ref = fa.flash_attention_plain_lse(q, k, v, causal=causal,
+                                                  window=window)
+        got = fa.BACKWARD_KERNELS[route](q, k, v, out, lse, dy,
+                                         causal=causal, window=window)
+        want = fa.flash_attention_backward(q, k, v, dy, causal, window)
+        torch.cuda.synchronize()
+        what = f"{route} {(B, S, H, KV, hd)} causal {causal} window {window}"
+        w = worst[route + ("_window" if window else "")]
+        err = (lse - lse_ref).abs().max().item()
+        check(err <= (LSE_ABS if route == "bf16" else LSE_ABS_FP32),
+              f"K2 LSE {what}: {err}")
+        w["lse_abs"] = max(w["lse_abs"], err)
+        limit = BWD_REL_RMS if route == "bf16" else BWD_REL_RMS_FP32
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"K2 backward {name} {what}: {a.shape} {a.dtype}")
+            rel = _rel_rms(a, b)
+            check(rel <= limit, f"K2 backward {name} {what}: relative RMS "
+                  f"{rel} beyond {limit}")
+            w[name] = max(w[name], rel)
+        n_attn += 1
+        del q, k, v, dy, out, got, want
+    torch.cuda.empty_cache()
     norm = {}
     for dt, (tol_dx, tol_ds) in BWD_NORM_TOL.items():
         w = norm[str(dt)] = dict(dx=0.0, dscale=0.0)
@@ -1769,7 +1867,9 @@ def backward_kernel_checks(smi):
                 w["dscale"] = max(w["dscale"], max_err(ds, ds_ref, tol_ds))
     rec = dict(attention_cases=n_attn, head_dims=list(BWD_HEAD_DIMS),
                groups=list(BWD_GROUPS), seqs=list(BWD_SEQS),
-               attention_worst_rel_rms=worst, rel_rms_limit=BWD_REL_RMS,
+               windows=[(tag, w) for tag, _, w, _, _ in WINDOW_ATTN],
+               attention_worst_rel_rms=worst,
+               rel_rms_limit={"bf16": BWD_REL_RMS, "fp32": BWD_REL_RMS_FP32},
                rmsnorm_worst_max_abs=norm,
                rmsnorm_widths=list(BWD_NORM_WIDTHS),
                rmsnorm_rows=list(BWD_NORM_ROWS),
@@ -1801,7 +1901,8 @@ def train_gpt(smi):
                 "flash_attention_bf16": cfg.n_layers,
                 "flash_attention_fp32": 0,
                 "rmsnorm_bwd": 2 * cfg.n_layers + 1,
-                "flash_attention_bwd_bf16": cfg.n_layers}
+                "flash_attention_bwd_bf16": cfg.n_layers,
+                "flash_attention_bwd_fp32": 0}
     losses, step_ms, launches = {}, [], {k: 0 for k in per_step}
     for step in range(GPT_STEPS):
         batch = _synthetic(cfg, GPT_BATCH, GPT_SEQ, step, "cuda")
@@ -1858,12 +1959,12 @@ def grads_against_plain(smi):
         counts = ops.launch_counts()
         route = "flash_attention_bf16" if dtype == "bfloat16" \
             else "flash_attention_fp32"
-        # the backward: K1's kernel in both dtypes, K2's bf16 kernel (the
-        # fp32 route's backward is the closed form)
+        # the backward: K1's kernel and K2's of the same dtype
+        bwd = route.replace("attention_", "attention_bwd_")
         check(counts["rmsnorm"] == counts["rmsnorm_bwd"] == 2 * cfg.n_layers + 1
-              and counts[route] == cfg.n_layers
+              and counts[route] == counts[bwd] == cfg.n_layers
               and counts["flash_attention_bwd_bf16"]
-              == (cfg.n_layers if dtype == "bfloat16" else 0),
+              + counts["flash_attention_bwd_fp32"] == cfg.n_layers,
               f"gpt {dtype} gradient: launches {counts}")
         with plain_kernels():
             ref, mr = grad_fn(model, batch)
@@ -1964,7 +2065,8 @@ def train_yi(smi):
 
 def train_cli():
     """(d) launch.train's own main on the card, the reduced config (fp32):
-    K2's fp32 route and K1 on its path, launches counted."""
+    K2's fp32 route, forward and backward, and K1 on its path, launches
+    counted."""
     import io
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli_mod
@@ -1981,7 +2083,8 @@ def train_cli():
     layers = 2                                 # gpt's reduced() depth
     check(counts["rmsnorm"] == counts["rmsnorm_bwd"]
           == TRAIN_CLI_STEPS * (2 * layers + 1)
-          and counts["flash_attention_fp32"] == TRAIN_CLI_STEPS * layers
+          and counts["flash_attention_fp32"]
+          == counts["flash_attention_bwd_fp32"] == TRAIN_CLI_STEPS * layers
           and counts["flash_attention_bf16"] == 0
           and counts["flash_attention_bwd_bf16"] == 0,
           f"launch.train: launches {counts}")
@@ -1990,8 +2093,8 @@ def train_cli():
 
 
 # Each kernel at the training paths' shapes (tag: path): gpt's full size,
-# launch.train's reduced default (fp32: K2's fp32 route, whose backward is
-# the closed form) and yi-9b's (8 layers, 1 x 4096)
+# launch.train's reduced default (fp32: K2's fp32 route, forward and
+# backward) and yi-9b's (8 layers, 1 x 4096)
 TRAIN_NORM_SHAPES = (("gpt_train", GPT_BATCH * GPT_SEQ, 768, torch.bfloat16),
                      ("train_reduced", 4 * 128, 128, torch.float32),
                      ("yi9b_train", YI_SEQ, D_MODEL, torch.bfloat16))
@@ -2021,9 +2124,9 @@ def train_kernel_records(peaks, smi):
     """Each kernel at the training paths' shapes, forward and backward: the
     kernel, its plain version and one PyTorch call (forward and backward:
     F.rms_norm, scaled_dot_product_attention), timed with CUDA events
-    beside the bound; the backward kernels (K1 in both dtypes, K2 bf16)
-    held against their plain versions (the closed forms), whose times are
-    kept beside them."""
+    beside the bound; the backward kernels (K1 and K2 in both dtypes) held
+    against their plain versions (the closed forms), whose times are kept
+    beside them."""
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     bw, bf16_rate, f32_rate = peaks
     rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
@@ -2087,10 +2190,11 @@ def train_kernel_records(peaks, smi):
                        for shape in ((B, S, H, hd), (B, S, KV, hd),
                                      (B, S, KV, hd), (B, S, H, hd)))
         bf16 = dt == torch.bfloat16
-        lse = fa.new_lse(q) if bf16 else None
+        route = fa.ROUTES[dt]
+        lse = fa.new_lse(q)
         got = fa.flash_attention(q, k, v, causal=True, lse=lse)
         want = fa.flash_attention_plain(q, k, v, causal=True)
-        rec = dict(kernel=f"flash_attention_{fa.ROUTES[dt]}", tag=tag,
+        rec = dict(kernel=f"flash_attention_{route}", tag=tag,
                    shape=[B, S, H, KV, hd], causal=True, dtype=str(dt))
         if not bf16:
             rec["max_abs_err"] = max_err(got, want, 2e-4)
@@ -2101,26 +2205,26 @@ def train_kernel_records(peaks, smi):
             rec["max_abs_err"] = (got.float() - want.float()).abs().max() \
                 .item()
             rec["row_rel_err"] = rel
-            grads = fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
-                                                causal=True)
-            ref = fa.flash_attention_backward(q, k, v, dy, True)
-            rels = {n: _rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                          grads, ref)}
-            check(max(rels.values()) <= BWD_REL_RMS,
-                  f"K2 backward {tag}: relative RMS {rels}")
-            rec["backward_rel_rms"] = rels
-            rec["backward_max_abs_err"] = max(
-                (a.float() - b.float()).abs().max().item()
-                for a, b in zip(grads, ref))
-            del grads, ref
-            rec["backward_kernel_ms"] = time_ms(
-                lambda: fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
-                                                    causal=True), 20, flush)
-            rec["backward_kernels_ms"] = kernel_split(
-                lambda: fa.flash_attention_bwd_bf16(q, k, v, got, lse, dy,
-                                                    causal=True),
-                BWD_KERNEL_NAMES["flash_attention_bwd_bf16"]
-                + ("bwd_sum_heads",))
+        # the backward kernel of the route against the closed form
+        bwd = fa.BACKWARD_KERNELS[route]
+        grads = bwd(q, k, v, got, lse, dy, causal=True)
+        ref = fa.flash_attention_backward(q, k, v, dy, True)
+        rels = {n: _rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                      grads, ref)}
+        check(max(rels.values()) <= (BWD_REL_RMS if bf16
+                                     else BWD_REL_RMS_FP32),
+              f"K2 backward {tag}: relative RMS {rels}")
+        rec["backward_rel_rms"] = rels
+        rec["backward_max_abs_err"] = max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(grads, ref))
+        del grads, ref
+        rec["backward_kernel_ms"] = time_ms(
+            lambda: bwd(q, k, v, got, lse, dy, causal=True), 20, flush)
+        rec["backward_kernels_ms"] = kernel_split(
+            lambda: bwd(q, k, v, got, lse, dy, causal=True),
+            BWD_KERNEL_NAMES[f"flash_attention_bwd_{route}"]
+            + (("bwd_sum_heads",) if bf16 else ()))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa(q, k, v):
@@ -2143,11 +2247,10 @@ def train_kernel_records(peaks, smi):
         es = q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(
             2 * es * B * S * hd * (H + KV), 4 * hd * pairs, dt)
-        # backward: read q, k, v, dy (and the kernel's out and LSE), write
-        # dq, dk, dv; five products (S recomputed, dP, dV, dQ, dK) over
-        # the causal pairs
-        reads = es * B * S * hd * ((3 if bf16 else 2) * H + 2 * KV) \
-            + (4 * B * H * S if bf16 else 0)
+        # backward: read q, k, v, dy, the forward's out and LSE, write dq,
+        # dk, dv; five products (S recomputed, dP, dV, dQ, dK) over the
+        # causal pairs
+        reads = es * B * S * hd * (3 * H + 2 * KV) + 4 * B * H * S
         rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
             reads + es * B * S * hd * (H + 2 * KV), 10 * hd * pairs, dt)
         records.append(rec)
@@ -2305,10 +2408,35 @@ def phase10_dryrun(smi):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def main():
+def windowed_profiles():
+    """``--windowed-profiles``: each windowed model's long prefill under the
+    profiler (``windowed_prefill``), one model resident at a time, with
+    the package beside this file; builds nothing ahead (the tree's kernels
+    build at first use)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}")
+    out = {arch: windowed_prefill(arch, smi) for arch in WINDOWED_ARCHS}
+    print(json.dumps({arch: dict(
+        device_busy_ms=r["device_busy_ms"],
+        plain_attention_ms=r["plain_attention_ms"],
+        plain_share=r["plain_attention_ms"] / r["device_busy_ms"],
+        flash_fwd_ms=r["flash_fwd_ms"], wall_ms=r["wall_ms"],
+        flash_attention_launches=r["launches"].get("flash_attention"))
+        for arch, r in out.items()}))
+    return 0
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
+        return 2
+    if list(argv) == ["--windowed-profiles"]:
+        return windowed_profiles()
+    if argv:
+        print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
     smi = phase0()
     kind = torch.cuda.get_device_name(0)
@@ -2322,7 +2450,7 @@ def main():
     mesh_run = phase10_mesh(model, prompts, long_prompt, logits, smi)
     del model, logits
     torch.cuda.empty_cache()
-    phase3_windowed()
+    gemma12 = phase3_windowed(smi)
     families = phase6_families()
     train = phase9_train(peaks, smi)
     inproc, inproc_s = phase4_verify()
@@ -2349,7 +2477,8 @@ def main():
                                     "bound_share", "host_us",
                                     "library_host_us", "shape")},
             floor_ms=floor["ms"], card=smi))
-    attn = dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128], causal=True)
+    attn = dict(shape=[B_PROMPT, S_PROMPT, 32, 4, 128], causal=True,
+                window=None)
     fa_src = "src/repro/kernels/flash_attention.py:26"
     for name, dt, src in (
             ("flash_attention_bf16", "torch.bfloat16", f"{BF16_LIB}.cu"),
@@ -2384,7 +2513,7 @@ def main():
         route = name.split("@")[0]
         rec = next(r for r in records if r["kernel"] == route
                    and r["dtype"] == dt and r["shape"] == list(shape)
-                   and r["causal"] == causal)
+                   and r["causal"] == causal and not r.get("window"))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/"
@@ -2396,6 +2525,30 @@ def main():
                                     "tflops", "bound_share", "host_us",
                                     "library_host_us", "shape")},
             causal=causal, card=smi))
+    # K2 with a window at the windowed layers' shapes, with the K2 launches
+    # of the model's path (gemma3-12b: phase 3's two prefills; the others:
+    # phase 6's path, global layers included)
+    windowed_path = {"gemma3_12b_local": gemma12["launches"],
+                     "gemma3_27b_local": families["gemma3-27b"]["launches"],
+                     "mixtral": families["mixtral-8x7b"]["launches"],
+                     "recurrentgemma_local":
+                         families["recurrentgemma-2b"]["launches"]}
+    for rec in records:
+        if rec.get("tag") not in windowed_path or "ms" not in rec:
+            continue
+        route = rec["kernel"]
+        kernels.append(dict(
+            name=f"{route}@{rec['tag']}", route="cuda",
+            source=f"src/repro_torch/csrc/"
+                   f"{BF16_LIB if 'bf16' in route else 'flash_attention'}.cu",
+            replaces=fa_src, launches=windowed_path[rec["tag"]][route],
+            path=rec["tag"],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "tflops", "bound_share", "host_us",
+                                    "library_host_us", "shape", "window",
+                                    "pairs")},
+            causal=True, card=smi))
     # each kernel at the training path's shapes, with the launches of the
     # phase-9 path that gives it that shape: gpt's 50 steps at full width
     # (bf16), launch.train's reduced default (fp32)
@@ -2434,7 +2587,10 @@ def main():
             ("flash_attention_bwd_bf16@gpt_train", ("flash", "gpt_train"),
              "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src),
             ("flash_attention_bwd_bf16@yi9b_train", ("flash", "yi9b_train"),
-             "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src)):
+             "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src),
+            ("flash_attention_bwd_fp32@train_reduced",
+             ("flash", "train_reduced"), "flash_attention_bwd_fp32",
+             f"{FP32_BWD_LIB}.cu", fa_src)):
         rec = recs[key]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
@@ -2475,4 +2631,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

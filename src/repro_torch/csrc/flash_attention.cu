@@ -26,10 +26,22 @@
 // reads of the score loop hit distinct banks.
 // Under `causal` the loop stops at the diagonal tile, and masking inside the
 // diagonal tile and past the end of a ragged last tile uses -1e30, so S need
-// not be a multiple of the tile. q/k/v/o are read and written through their
+// not be a multiple of the tile. A sliding window (`window` > 0, causal
+// only: key k is seen by query q iff k <= q and q - k < window, the JAX
+// layers' _mask) starts the loop at the tile that holds the tile's first
+// row's first key, q0 - window + 1, and masks the keys before each row's
+// window: the loop visits ~window keys a row, not q. A row whose keys in an
+// early tile are all masked takes exp(0) = 1 for each until its first
+// unmasked score, whose max scales that sum and the output by exp(-1e30 -
+// max) = 0, as for rows past the diagonal; every row sees its own key. q/k/v/o are read and written through their
 // (batch, seq, head) strides; the last dim must be contiguous. GQA: query
 // head h reads KV head h / (H / KV). Q tiles are issued last-first so the
 // longest causal tiles start first.
+//
+// Training: given a pointer, the epilogue also writes each row's
+// log-sum-exp of the scaled, masked scores, m + log l, which the backward
+// (flash_attention_bwd.cu) recomputes P from; an instance of its own, so
+// that a call without it runs the same code as before.
 //
 // C entry: repro_flash_attention_fwd, launched on the caller's stream; it
 // allocates nothing and returns cudaGetLastError() of the launch.
@@ -63,15 +75,17 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src, int64_t str
   }
 }
 
-template <typename T, int HD, int BQ>
+// LSE: whether the epilogue also writes each row's log-sum-exp (training).
+template <typename T, int HD, int BQ, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int group,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int group,
                  int64_t sqb, int64_t sqs, int64_t sqh,
                  int64_t skb, int64_t sks, int64_t skh,
                  int64_t svb, int64_t svs, int64_t svh,
                  int64_t sob, int64_t sos, int64_t soh,
-                 float scale, int causal) {
+                 float scale, int causal, int window) {
   constexpr int RQ = BQ / 16;      // query rows per thread
   constexpr int NC = HD / 8;       // output columns per thread
   constexpr int SC = kBlockK / 8;  // score columns per thread
@@ -111,7 +125,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_end = causal ? min(S, q0 + BQ) : S;
   const int n_k = (k_end + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_k; ++kt) {
+  // a window's first key for the tile's first row (window implies causal)
+  const int kt0 = window ? max(0, q0 - window + 1) / kBlockK : 0;
+  for (int kt = kt0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // Q staged / previous V tile consumed
     stage_tile<T, HD>(KVs, kb, sks, k0, kBlockK, S, 1.f);
@@ -143,7 +159,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SC; ++j) {
         const int kj = k0 + tx + 8 * j;
-        if (kj >= S || (causal && kj > qi)) s[r][j] = kNegInf;
+        if (kj >= S || (causal && kj > qi) || (window && qi - kj >= window))
+          s[r][j] = kNegInf;
         mx = fmaxf(mx, s[r][j]);
       }
 #pragma unroll
@@ -191,6 +208,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * RQ + r;
     if (qi < S) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (LSE && tx == 0)
+        lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + qi] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
       T* orow = ob + (int64_t)qi * sos;
 #pragma unroll
       for (int c = 0; c < NC; ++c) orow[tx + 8 * c] = from_f32<T>(acc[r][c] * inv);
@@ -208,39 +228,40 @@ constexpr size_t smem_bytes() {
 #define REPRO_FA_HEAD_DIMS(X) X(32, 64) X(64, 64) X(112, 64) X(128, 64) X(256, 32)
 
 template <typename T, int HD, int BQ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int S, int H, int KV,
                    int64_t sqb, int64_t sqs, int64_t sqh,
                    int64_t skb, int64_t sks, int64_t skh,
                    int64_t svb, int64_t svs, int64_t svh,
                    int64_t sob, int64_t sos, int64_t soh,
-                   float scale, int causal, cudaStream_t stream) {
+                   float scale, int causal, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD, BQ>();
-  auto kern = flash_fwd_kernel<T, HD, BQ>;
+  auto kern = lse != nullptr ? flash_fwd_kernel<T, HD, BQ, true>
+                             : flash_fwd_kernel<T, HD, BQ, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H / KV, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
-      sob, sos, soh, scale, causal);
+      static_cast<T*>(o), lse, S, H / KV, sqb, sqs, sqh, skb, sks, skh, svb, svs,
+      svh, sob, sos, soh, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV,
+                        float* lse, int B, int S, int H, int KV,
                         int64_t sqb, int64_t sqs, int64_t sqh,
                         int64_t skb, int64_t sks, int64_t skh,
                         int64_t svb, int64_t svs, int64_t svh,
                         int64_t sob, int64_t sos, int64_t soh,
-                        float scale, int causal, cudaStream_t stream) {
-#define REPRO_FA_CASE(HD_, BQ_)                                                   \
-  case HD_:                                                                       \
-    return launch<T, HD_, BQ_>(q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
-                               skh, svb, svs, svh, sob, sos, soh, scale, causal, \
-                               stream);
+                        float scale, int causal, int window, cudaStream_t stream) {
+#define REPRO_FA_CASE(HD_, BQ_)                                                        \
+  case HD_:                                                                            \
+    return launch<T, HD_, BQ_>(q, k, v, o, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
+                               skh, svb, svs, svh, sob, sos, soh, scale, causal,      \
+                               window, stream);
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)
     default:
@@ -251,7 +272,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// float32 only. Strides are in elements.
+// float32 only. Strides are in elements. `window`: 0, or a sliding window
+// under `causal`. `lse`: null, or a contiguous fp32 (B, H, S) that receives
+// each row's log-sum-exp (what the backward kernel recomputes P from).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int S, int H, int KV, int hd,
@@ -259,12 +282,13 @@ extern "C" int repro_flash_attention_fwd(
     int64_t skb, int64_t sks, int64_t skh,
     int64_t svb, int64_t svs, int64_t svh,
     int64_t sob, int64_t sos, int64_t soh,
-    float scale, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+    float scale, int causal, int window, float* lse, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_hd<float>(hd, q, k, v, o, B, S, H, KV, sqb, sqs, sqh, skb, sks,
-                                 skh, svb, svs, svh, sob, sos, soh, scale, causal,
-                                 static_cast<cudaStream_t>(stream));
+  return (int)dispatch_hd<float>(hd, q, k, v, o, lse, B, S, H, KV, sqb, sqs, sqh, skb,
+                                 sks, skh, svb, svs, svh, sob, sos, soh, scale, causal,
+                                 window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

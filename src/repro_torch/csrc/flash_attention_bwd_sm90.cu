@@ -56,6 +56,15 @@
 //     on an H100 80GB HBM3 (700 W), against 1.53 with this kernel and a
 //     bound of 0.348 for five products; and dQ comes out the same on
 //     every run.
+// Sliding window (`window` > 0, causal only: key k is seen by query q iff
+// k <= q and q - k < window, the JAX layers' _mask): a key tile's query loop
+// ends at the last query its window reaches, k0 + 127 + window - 1; a query
+// tile's key loop starts at the tile that holds its first row's first key,
+// q0 - window + 1; tiles that reach past a warpgroup's window are masked
+// as the diagonal ones are (P = 0), and a warpgroup whose keys no query of
+// the step sees skips it. The prologue and the GQA sum are unchanged. The
+// window is an instance of its own (WINDOW): as a runtime argument it made
+// the backward without a window 11-15% slower (an H100 80GB HBM3 at 700 W).
 // Head dim 256: a warpgroup's dK and dV accumulators (64 x 256 fp32 each,
 // 128 registers a thread each) do not fit together, so the main kernel runs
 // twice, a dV pass and a dK pass, each recomputing P, with one ring stage
@@ -198,8 +207,9 @@ __global__ void bwd_sum_heads(const float2* __restrict__ part, __nv_bfloat16* __
   }
 }
 
-// HD: the tile's head dim; HD_OUT <= HD: the columns the tensors have.
-template <int HD, int HD_OUT, int PASS>
+// HD: the tile's head dim; HD_OUT <= HD: the columns the tensors have;
+// WINDOW: whether `window` (> 0) applies.
+template <int HD, int HD_OUT, int PASS, bool WINDOW>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -209,7 +219,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                float* __restrict__ part, int S, int S_pad, int H, int group, int splits,
                int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-               int64_t svh, float scale, int causal) {
+               int64_t svh, float scale, int causal, int window) {
   using T = Tile<HD>;
   constexpr bool kDoDV = PASS != kDK;
   constexpr bool kDoDK = PASS != kDV;
@@ -235,7 +245,9 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.z;
   const int n_q = S_pad / kBlockQ;
   const int qt0 = causal ? k0 / kBlockQ : 0;  // no earlier query sees these keys
-  const int per_head = n_q - qt0;
+  // nor a later one than the last key's window reaches (window implies causal)
+  const int qt_end = WINDOW ? min(n_q, (k0 + kBlockK + window - 2) / kBlockQ + 1) : n_q;
+  const int per_head = qt_end - qt0;
   const int n_steps = heads * per_head;
 
   const int wg = threadIdx.x / 128;
@@ -315,9 +327,10 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
       const uint32_t ph = (i / T::STAGES) & 1;
       const int q0 = (qt0 + i % per_head) * kBlockQ;
       mbar_wait(full(st), ph);
-      // a warpgroup whose keys are all past S, or all after the tile's last
-      // query (causal), adds nothing
-      const bool live = kw0 < S && !(causal && kw0 > q0 + kBlockQ - 1);
+      // a warpgroup whose keys are all past S, all after the tile's last
+      // query (causal), or all before the first query's window, adds nothing
+      const bool live = kw0 < S && !(causal && kw0 > q0 + kBlockQ - 1) &&
+                        !(WINDOW && q0 - (kw0 + 63) >= window);
       if (live) {
         const uint32_t qb = q_s + st * T::Q_BYTES;
         const uint32_t dob = do_s + st * T::Q_BYTES;
@@ -341,8 +354,9 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
         fence_regs(s);
 
         // P^T in fp32, masked to 0 on the causal triangle and past S
-        const bool masked =
-            (causal && q0 < kw0 + 63) || kw0 + 64 > S || q0 + kBlockQ > S;
+        const bool masked = (causal && q0 < kw0 + 63) || kw0 + 64 > S ||
+                            q0 + kBlockQ > S ||
+                            (WINDOW && q0 + kBlockQ - 1 - kw0 >= window);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -355,7 +369,9 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
               if (masked) {
                 const int key = kw0 + rr + 8 * ii;
                 const int q = q0 + qc;
-                if (key >= S || q >= S || (causal && key > q)) p = 0.f;
+                if (key >= S || q >= S || (causal && key > q) ||
+                    (WINDOW && q - key >= window))
+                  p = 0.f;
               }
               s[4 * j + 2 * ii + c] = p;
             }
@@ -482,8 +498,9 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq,
 // K-major), P = exp2(S scale log2e - LSE log2e) masked to 0, dS = P (dP -
 // delta) rounded to bf16 in registers, whose accumulator fragment is the A
 // fragment of dQ += dS K (RS, K an MN-major B). HD: the tile's head dim;
-// HD_OUT <= HD: the columns the tensors have.
-template <int HD, int HD_OUT>
+// HD_OUT <= HD: the columns the tensors have; WINDOW: whether `window`
+// (> 0) applies.
+template <int HD, int HD_OUT, bool WINDOW>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -491,7 +508,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse2, const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int S, int S_pad, int group,
-                  int64_t sqb, int64_t sqs, int64_t sqh, float scale, int causal) {
+                  int64_t sqb, int64_t sqs, int64_t sqh, float scale, int causal,
+                  int window) {
   using T = DqTile<HD>;
   constexpr int BK = T::BK;
 
@@ -514,6 +532,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kDqRows;
   const int k_end = causal ? min(S, q0 + kDqRows) : S;
   const int n_k = (k_end + BK - 1) / BK;
+  // the first tile of the first row's window (window implies causal)
+  const int kt0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;
   // consumer warpgroups that hold at least one row < S
   const int active = min(kConsumers, (S - q0 + 63) / 64);
 
@@ -546,9 +566,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(q_s + c * T::Q_BLOCK, &tq, q_full, c * T::BOX, h, q0, b);
         tma_load_4d(do_s + c * T::Q_BLOCK, &tdo, q_full, c * T::BOX, h, q0, b);
       }
-      for (int kt = 0; kt < n_k; ++kt) {
-        const int st = kt % T::STAGES;
-        const uint32_t ph = (kt / T::STAGES) & 1;
+      for (int kt = kt0; kt < n_k; ++kt) {
+        const int st = (kt - kt0) % T::STAGES;
+        const uint32_t ph = ((kt - kt0) / T::STAGES) & 1;
         mbar_wait(k_empty(st), ph ^ 1);
         mbar_expect_tx(k_full(st), T::KV_BYTES);
 #pragma unroll
@@ -585,9 +605,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
     float dp[BK / 2];
 
     mbar_wait(q_full, 0);
-    for (int kt = 0; kt < n_mine; ++kt) {
-      const int st = kt % T::STAGES;
-      const uint32_t ph = (kt / T::STAGES) & 1;
+    for (int kt = kt0; kt < n_mine; ++kt) {
+      const int st = (kt - kt0) % T::STAGES;
+      const uint32_t ph = ((kt - kt0) / T::STAGES) & 1;
       const int k0 = kt * BK;
       const uint32_t kb = k_s + st * T::KV_BYTES;
       const uint32_t vb = v_s + st * T::KV_BYTES;
@@ -621,9 +641,11 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
       fence_regs(dp);
       mbar_arrive(v_empty(st));
 
-      // dS = P (dP - delta), P masked to 0 (causal, keys and rows past S)
-      const bool masked =
-          k0 + BK > S || wq0 + 64 > S || (causal && k0 + BK - 1 > wq0);
+      // dS = P (dP - delta), P masked to 0 (causal, window, keys and rows
+      // past S)
+      const bool masked = k0 + BK > S || wq0 + 64 > S ||
+                          (causal && k0 + BK - 1 > wq0) ||
+                          (WINDOW && k0 < wq0 + 64 - window);
       uint32_t dsa[BK / 16][4];
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -637,7 +659,9 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
             if (masked) {
               const int kj = k0 + 8 * j + c0 + c;
               const int row = r0 + 8 * i;
-              if (kj >= S || row >= S || (causal && kj > row)) p = 0.f;
+              if (kj >= S || row >= S || (causal && kj > row) ||
+                  (WINDOW && row - kj >= window))
+                p = 0.f;
             }
             d[c] = p * (dp[e] - dl[i]);
           }
@@ -682,9 +706,10 @@ cudaError_t launch_main(const CUtensorMap& tq, const CUtensorMap& tk, const CUte
                         void* dk, void* dv, float* part, int B, int S, int S_pad, int H,
                         int KV, int splits, int64_t skb, int64_t sks, int64_t skh,
                         int64_t svb, int64_t svs, int64_t svh, float scale, int causal,
-                        cudaStream_t stream) {
+                        int window, cudaStream_t stream) {
   using T = Tile<HD>;
-  auto kern = flash_bwd_sm90<HD, HD_OUT, PASS>;
+  auto kern = window > 0 ? flash_bwd_sm90<HD, HD_OUT, PASS, true>
+                         : flash_bwd_sm90<HD, HD_OUT, PASS, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
@@ -692,7 +717,7 @@ cudaError_t launch_main(const CUtensorMap& tq, const CUtensorMap& tk, const CUte
   kern<<<grid, kThreads, T::SMEM, stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), part, S, S_pad, H, H / KV, splits, skb, sks, skh,
-      svb, svs, svh, scale, causal);
+      svb, svs, svh, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -705,7 +730,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    int64_t svs, int64_t svh, int64_t sdb, int64_t sds, int64_t sdh,
                    int64_t sdqb, int64_t sdqs, int64_t sdqh, int64_t sdkb, int64_t sdks,
                    int64_t sdkh, int64_t sdvb, int64_t sdvs, int64_t sdvh, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, int window, cudaStream_t stream) {
   using T = Tile<HD>;
   // the main kernel's boxes: 64-row Q and dO tiles, 128-row K and V
   // tiles; the dQ kernel's: 128-row Q and dO tiles, 64-row K and V tiles
@@ -723,15 +748,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if constexpr (HD == 256) {
     err = launch_main<HD, HD_OUT, kDV>(tq, tk, tv, tdo, lse2, delta, dk, dv, part, B, S,
                                        S_pad, H, KV, splits, sdkb, sdks, sdkh, sdvb, sdvs, sdvh, scale, causal,
-                                       stream);
+                                       window, stream);
     if (err != cudaSuccess) return err;
     err = launch_main<HD, HD_OUT, kDK>(tq, tk, tv, tdo, lse2, delta, dk, dv, part, B, S,
                                        S_pad, H, KV, splits, sdkb, sdks, sdkh, sdvb, sdvs, sdvh, scale, causal,
-                                       stream);
+                                       window, stream);
   } else {
     err = launch_main<HD, HD_OUT, kAll>(tq, tk, tv, tdo, lse2, delta, dk, dv, part, B, S,
                                         S_pad, H, KV, splits, sdkb, sdks, sdkh, sdvb, sdvs, sdvh, scale,
-                                        causal, stream);
+                                        causal, window, stream);
   }
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -744,14 +769,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  auto kern = flash_bwd_dq_sm90<HD, HD_OUT>;
+  auto kern = window > 0 ? flash_bwd_dq_sm90<HD, HD_OUT, true>
+                         : flash_bwd_dq_sm90<HD, HD_OUT, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              DqTile<HD>::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kDqRows - 1) / kDqRows, H, B);
   kern<<<grid, kThreads, DqTile<HD>::SMEM, stream>>>(
       uq, uk, uv, udo, lse2, delta, static_cast<__nv_bfloat16*>(dq), S, S_pad, H / KV,
-      sdqb, sdqs, sdqh, scale, causal);
+      sdqb, sdqs, sdqh, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -766,7 +792,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 // caller: lse2 and delta, fp32 (B*H, S_pad) each with S_pad = S rounded up
 // to 64; with `splits` > 1 (the query heads of a KV head over that many
 // blocks), part, fp32 2 x (B, S, KV * splits, hd). dq, dk, dv: bf16,
-// written through their strides.
+// written through their strides. `window`: 0, or a sliding window under
+// `causal`.
 extern "C" int repro_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* lse2, float* delta, void* dq, void* dk, void* dv, float* part,
@@ -774,9 +801,10 @@ extern "C" int repro_flash_attention_bwd_sm90(
     int64_t skh, int64_t svb, int64_t svs, int64_t svh, int64_t sob, int64_t sos,
     int64_t soh, int64_t sdb, int64_t sds, int64_t sdh, int64_t sdqb, int64_t sdqs,
     int64_t sdqh, int64_t sdkb, int64_t sdks, int64_t sdkh, int64_t sdvb, int64_t sdvs,
-    int64_t sdvh, float scale, int causal, void* stream) {
+    int64_t sdvh, float scale, int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || splits <= 0 ||
-      (H / KV) % splits != 0 || (splits > 1 && part == nullptr))
+      (H / KV) % splits != 0 || (splits > 1 && part == nullptr) || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S_pad = (S + kBlockQ - 1) / kBlockQ * kBlockQ;
@@ -795,7 +823,7 @@ extern "C" int repro_flash_attention_bwd_sm90(
     return (int)launch<TILE_, HD_>(q, k, v, dout, lse2, delta, dq, dk, dv, part, B, S,   \
                                    S_pad, H, KV, splits, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,  \
                                    sdb, sds, sdh, sdqb, sdqs, sdqh, sdkb, sdks, sdkh,   \
-                                   sdvb, sdvs, sdvh, scale, causal, st);
+                                   sdvb, sdvs, sdvh, scale, causal, window, st);
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)
     default:

@@ -43,6 +43,20 @@
 // __grid_constant__ parameters. GQA: query head h reads KV head
 // h / (H / KV). The output is stored from registers through its strides.
 //
+// Sliding window (`window` > 0, causal only: key k is seen by query q iff
+// k <= q and q - k < window, the JAX layers' _mask): the block's key loop
+// starts at the tile that holds its first row's first key, q0 - window + 1,
+// so the producer never loads a tile wholly outside the window, and both
+// warpgroups consume every tile from there (the ring's empty barriers
+// count both); a tile that reaches before a warpgroup's window is masked
+// like the diagonal one. A row whose keys in such a tile are all masked
+// adds exp2(0) = 1 for each until its first unmasked score, whose max
+// scales that sum and the output by exp2(-1e30 - max) = 0: every row sees
+// its own key. The window is an instance of its own (WINDOW), as the LSE
+// write is: as a runtime argument it made every serving shape without a
+// window 9-38% slower (an H100 80GB HBM3 at 700 W, paired against the
+// kernel without it by python -m repro_torch.launch.kernel_times).
+//
 // Training: given a pointer, the epilogue also writes each row's
 // log-sum-exp, (m + log2 l) ln 2, which flash_attention_bwd_sm90.cu
 // recomputes P from; serving passes none and launches an instance without
@@ -94,15 +108,16 @@ struct Tile {
 
 // HD: the tile's head dim; HD_OUT <= HD: the columns the output has; LSE:
 // whether the epilogue also writes each row's log-sum-exp (training), an
-// instance of its own so that serving's code is the same without it.
-template <int HD, int HD_OUT, bool LSE>
+// instance of its own so that serving's code is the same without it;
+// WINDOW: whether `window` (> 0) applies, likewise.
+template <int HD, int HD_OUT, bool LSE, bool WINDOW>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
                int group, int64_t sob, int64_t sos, int64_t soh, float scale,
-               int causal) {
+               int causal, int window) {
   using T = Tile<HD>;
   constexpr int BK = T::BK;
 
@@ -124,6 +139,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * kBlockQ;
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
   const int n_k = (k_end + BK - 1) / BK;
+  // the first tile of the first row's window (window implies causal)
+  const int kt0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;
   // consumer warpgroups that hold at least one row < S
   const int active = min(kConsumers, (S - q0 + 63) / 64);
 
@@ -154,9 +171,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int c = 0; c < T::BLOCKS; ++c)
         tma_load_4d(q_s + c * T::Q_BLOCK, &tq, q_full, c * T::BOX, h, q0, b);
-      for (int kt = 0; kt < n_k; ++kt) {
-        const int st = kt % kStages;
-        const uint32_t ph = (kt / kStages) & 1;
+      for (int kt = kt0; kt < n_k; ++kt) {
+        const int st = (kt - kt0) % kStages;
+        const uint32_t ph = ((kt - kt0) / kStages) & 1;
         mbar_wait(k_empty(st), ph ^ 1);
         mbar_expect_tx(k_full(st), T::KV_BYTES);
 #pragma unroll
@@ -195,9 +212,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     float l[2] = {0.f, 0.f};          // this thread's part of the row sum
 
     mbar_wait(q_full, 0);
-    for (int kt = 0; kt < n_mine; ++kt) {
-      const int st = kt % kStages;
-      const uint32_t ph = (kt / kStages) & 1;
+    for (int kt = kt0; kt < n_mine; ++kt) {
+      const int st = (kt - kt0) % kStages;
+      const uint32_t ph = ((kt - kt0) / kStages) & 1;
       const int k0 = kt * BK;
 
       // S = Q K^T
@@ -220,7 +237,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(k_empty(st));
 
       // scale, mask, online softmax (log2 domain)
-      const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > wq0);
+      const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > wq0) ||
+                          (WINDOW && k0 < wq0 + 64 - window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -231,7 +249,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
             float x = s[4 * j + 2 * i + c] * sl2;
             if (masked) {
               const int kj = k0 + 8 * j + c0 + c;
-              if (kj >= S || (causal && kj > r0 + 8 * i)) x = kNegInf;
+              const int row = r0 + 8 * i;
+              if (kj >= S || (causal && kj > row) || (WINDOW && row - kj >= window))
+                x = kNegInf;
             }
             s[4 * j + 2 * i + c] = x;
             mx[i] = fmaxf(mx[i], x);
@@ -319,7 +339,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    int H, int KV, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                    int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
                    int64_t sob, int64_t sos, int64_t soh, float scale, int causal,
-                   cudaStream_t stream) {
+                   int window, cudaStream_t stream) {
   using T = Tile<HD>;
   // boxes of one column block (columns HD_OUT..HD-1 read as zeros)
   CUtensorMap tq, tk, tv;
@@ -327,14 +347,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
       !make_bf16_map(&tk, k, HD_OUT, B, S, KV, skb, sks, skh, T::BOX, T::BK) ||
       !make_bf16_map(&tv, v, HD_OUT, B, S, KV, svb, svs, svh, T::BOX, T::BK))
     return cudaErrorInvalidValue;
-  auto kern = lse != nullptr ? flash_fwd_sm90<HD, HD_OUT, true>
-                             : flash_fwd_sm90<HD, HD_OUT, false>;
+  auto kern = lse != nullptr
+                  ? (window > 0 ? flash_fwd_sm90<HD, HD_OUT, true, true>
+                                : flash_fwd_sm90<HD, HD_OUT, true, false>)
+                  : (window > 0 ? flash_fwd_sm90<HD, HD_OUT, false, true>
+                                : flash_fwd_sm90<HD, HD_OUT, false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   kern<<<grid, kThreads, T::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                            lse, S, H / KV, sob, sos, soh, scale, causal);
+                                            lse, S, H / KV, sob, sos, soh, scale, causal,
+                                            window);
   return cudaGetLastError();
 }
 
@@ -345,20 +369,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // bf16 only. Strides are in elements; q/k/v must be TMA-addressable (16-byte
 // aligned base, strides of whole 16 bytes), which the Python wrapper checks.
-// `lse`: null, or a contiguous fp32 (B, H, S) that receives each row's
-// log-sum-exp (what the backward kernel recomputes P from).
+// `window`: 0, or a sliding window under `causal`. `lse`: null, or a
+// contiguous fp32 (B, H, S) that receives each row's log-sum-exp (what the
+// backward kernel recomputes P from).
 extern "C" int repro_flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
     int hd, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
     int64_t skh, int64_t svb, int64_t svs, int64_t svh, int64_t sob, int64_t sos,
-    int64_t soh, float scale, int causal, float* lse, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+    int64_t soh, float scale, int causal, int window, float* lse, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_CASE(HD_, TILE_)                                                    \
   case HD_:                                                                          \
     return (int)launch<TILE_, HD_>(q, k, v, o, lse, B, S, H, KV, sqb, sqs, sqh, skb, sks, \
-                                   skh, svb, svs, svh, sob, sos, soh, scale, causal, st);
+                                   skh, svb, svs, svh, sob, sos, soh, scale, causal,     \
+                                   window, st);
   switch (hd) {
     REPRO_FA_HEAD_DIMS(REPRO_FA_CASE)
     default:

@@ -1,4 +1,5 @@
-"""Flash-attention forward for Hopper (CUDA C++), beside its plain version.
+"""Flash attention for Hopper (CUDA C++), both directions, beside the plain
+versions.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention``). Two kernels, chosen by dtype
@@ -12,26 +13,31 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
   keep the float32 model within 1e-4 of the CPU where TF32 would not.
 
 Each source holds the note on what bounds it on the card and how its design
-answers that. This module binds both with ctypes (built by
-``kernels/build.py``), counts each route's launches, and holds the plain
-PyTorch version.
+answers that. This module binds the forward and backward kernels with
+ctypes (built by ``kernels/build.py``), counts each one's launches, and
+holds the plain PyTorch versions.
 
 Unlike the Pallas wrapper, K/V may carry fewer heads than Q (GQA: query head
 ``h`` reads KV head ``h // (H // KV)``, the ``jnp.repeat`` /
 ``torch.repeat_interleave`` order), S need not divide the tile, and inputs
-are read through their strides with no transposes.
+are read through their strides with no transposes. Every kernel, both
+routes and both directions, also takes a causal sliding window: key ``k``
+is seen by query ``q`` iff ``k <= q`` and ``q - k < window`` (the JAX
+layers' ``_mask``; 0 = no window), so a windowed layer's key loop starts at
+the window's first tile; the Pallas kernel has no window (the JAX package
+computes windowed layers in XLA ops), and a window without the causal mask
+raises (``check_window``).
 
-``FlashAttentionFunction`` makes the kernels differentiable. bf16: the
-forward launch also writes each row's log-sum-exp, and the backward
-launches ``csrc/flash_attention_bwd_sm90.cu`` (``flash_attention_bwd_bf16``:
-dK and dV per key tile, dQ per query tile, every product on ``wgmma``, P
-recomputed per tile from that LSE).
-float32: the backward is the closed form in torch ops, chosen by dtype as
-the forward's routes are (K2's fp32 route has no backward kernel). The
-closed form, ``flash_attention_backward``, is the bf16 backward kernel's
-plain version too: the CPU takes it, a bf16 CUDA tensor never does. The
-Pallas kernel has no backward: the JAX package differentiates the XLA ops
-of its layers.
+``FlashAttentionFunction`` makes the kernels differentiable: the forward
+launch also writes each row's log-sum-exp, and the backward launches the
+backward kernel of q's dtype. bf16: ``csrc/flash_attention_bwd_sm90.cu``
+(``flash_attention_bwd_bf16``: dK and dV per key tile, dQ per query tile,
+every product on ``wgmma``, P recomputed per tile from that LSE). float32:
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_fp32``: the same
+plan in scalar fp32 FMAs). The closed form, ``flash_attention_backward``,
+is both backward kernels' plain version: the CPU takes it, a CUDA tensor
+never does. The Pallas kernel has no backward: the JAX package
+differentiates the XLA ops of its layers.
 """
 from __future__ import annotations
 
@@ -54,47 +60,64 @@ BWD_BLOCK_K, BWD_BLOCK_Q = 128, 64
 BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def key_mask(S: int, Sk: int, causal: bool, window: int, device=None):
+    """(S, Sk) bool: whether query q (position q of 0..S-1) sees key k. The
+    JAX layers' ``_mask`` over positions 0..S-1: ``k <= q`` when causal, and
+    ``q - k < window`` when ``window`` (0 = none). None where every pair is
+    seen."""
+    if not causal and not window:
+        return None
+    q = torch.arange(S, device=device)[:, None]
+    k = torch.arange(Sk, device=device)[None, :]
+    m = torch.ones((S, Sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= k <= q
+    if window:
+        m &= q - k < window
+    return m
+
+
+def _plain_scores(q, k, causal, window):
+    """fp32 (B, H, S, Sk) scores q k^T * hd**-0.5, the masked ones -1e30 (the
+    kernels' mask), with KV heads repeated for GQA (the ``jnp.repeat`` /
+    ``torch.repeat_interleave`` order)."""
+    hd = q.shape[3]
+    G = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2) if G > 1 else k.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * hd ** -0.5
+    mask = key_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return s if mask is None else s.masked_fill(~mask, NEG_INF)
+
+
+def _plain_values(w, v, dtype):
+    G = w.shape[1] // v.shape[2]
+    vf = v.float().repeat_interleave(G, dim=2) if G > 1 else v.float()
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.
 
-    Softmax attention scaled by hd**-0.5, in fp32, cast to q's dtype; the
-    plain version of the
-    kernel, with the kernel's -1e30 mask."""
-    B, S, H, hd = q.shape
-    G = H // k.shape[2]
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
-    if causal:
-        mask = torch.ones((S, k.shape[1]), dtype=torch.bool,
-                          device=q.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+    Softmax attention scaled by hd**-0.5, in fp32, cast to q's dtype, over
+    the keys :func:`key_mask` lets each query see (a causal sliding window
+    of ``window`` keys where it is not 0); the plain version of the
+    kernels, with their -1e30 mask."""
+    w = torch.softmax(_plain_scores(q, k, causal, window), dim=-1)
+    return _plain_values(w, v, q.dtype)
 
 
-def flash_attention_plain_lse(q, k, v, *, causal: bool = True):
+def flash_attention_plain_lse(q, k, v, *, causal: bool = True,
+                              window: int = 0):
     """:func:`flash_attention_plain` and the row log-sum-exp of its scaled,
-    masked scores, fp32 (B, H, S): what the bf16 kernel writes for the
-    backward, in its plain version."""
-    B, S, H, hd = q.shape
-    G = H // k.shape[2]
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
-    if causal:
-        mask = torch.ones((S, k.shape[1]), dtype=torch.bool,
-                          device=q.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
+    masked scores, fp32 (B, H, S): what the kernels write for the backward,
+    in its plain version."""
+    s = _plain_scores(q, k, causal, window)
     lse = torch.logsumexp(s, dim=-1)
-    w = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
-    return out, lse
+    return _plain_values(torch.exp(s - lse[..., None]), v, q.dtype), lse
 
 
-def flash_attention_backward(q, k, v, dy, causal: bool = True):
+def flash_attention_backward(q, k, v, dy, causal: bool = True,
+                             window: int = 0):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_plain` for the
     upstream gradient ``dy`` (B, S, H, hd). The probabilities P are
     recomputed from q and k at scale hd**-0.5 (with the -1e30 mask), then
@@ -112,12 +135,7 @@ def flash_attention_backward(q, k, v, dy, causal: bool = True):
     if G > 1:
         kf = kf.repeat_interleave(G, dim=2)
         vf = vf.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    del s
+    p = torch.softmax(_plain_scores(q, k, causal, window), dim=-1)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, df)
     dp = torch.einsum("bqhd,bkhd->bhqk", df, vf)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
@@ -128,6 +146,15 @@ def flash_attention_backward(q, k, v, dy, causal: bool = True):
         dk = dk.reshape(B, S, KV, G, hd).sum(dim=3)
         dv = dv.reshape(B, S, KV, G, hd).sum(dim=3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def kernel_window(window: int, S: int) -> int:
+    """The window a kernel is given: ``window``, or 0 (none) where it is at
+    least S, which under the causal mask hides no key. A negative window
+    raises."""
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    return window if window < S else 0
 
 
 def tma_strides(shape, strides) -> tuple[int, int, int]:
@@ -186,23 +213,32 @@ def kernel_route(dtype, q_shape, q_strides, q_ptr, kv_shape, kv_layouts):
     return route
 
 
-# the forward entries' arguments; the bf16 one also takes the LSE pointer
+# the forward entries' arguments, then the LSE pointer and the stream
 _FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
-             + [ctypes.c_float, ctypes.c_int])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p])
 _ARGTYPES = {
-    "flash_attention": _FWD_ARGS + [ctypes.c_void_p],
-    "flash_attention_sm90": _FWD_ARGS + [ctypes.c_void_p] * 2,
+    "flash_attention": _FWD_ARGS,
+    "flash_attention_sm90": _FWD_ARGS,
     "flash_attention_bwd_sm90": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                                  + [ctypes.c_int64] * 24
-                                 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p])}
+                                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]),
+    "flash_attention_bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                            + [ctypes.c_int64] * 24
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p])}
+# each library's C entry
+_ENTRIES = {"flash_attention": "repro_flash_attention_fwd",
+            "flash_attention_sm90": "repro_flash_attention_sm90_fwd",
+            "flash_attention_bwd_sm90": "repro_flash_attention_bwd_sm90",
+            "flash_attention_bwd": "repro_flash_attention_bwd"}
 
 
 @functools.cache
 def _lib(name):
     lib = build.load(name)
-    fn = getattr(lib, f"repro_{name}" if name.startswith(
-        "flash_attention_bwd") else f"repro_{name}_fwd")
+    fn = getattr(lib, _ENTRIES[name])
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -216,14 +252,15 @@ def _check(lib, err, name):
                            f"({lib.repro_cuda_error_string(err).decode()})")
 
 
-def _launch(name, q, k, v, causal, strides, *extra):
+def _launch(name, q, k, v, causal, window, strides, lse):
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lib, fn = _lib(name)
     _check(lib, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, S, H, k.shape[2], hd, *strides(q), *strides(k),
                    *strides(v), *out.stride()[:3], hd ** -0.5,
-                   int(bool(causal)), *extra,
+                   int(bool(causal)), kernel_window(window, S),
+                   None if lse is None else lse.data_ptr(),
                    torch.cuda.current_stream(q.device).cuda_stream), name)
     return out
 
@@ -232,20 +269,25 @@ def _tma(t):
     return tma_strides(t.shape, t.stride())
 
 
-def flash_attention_bf16(q, k, v, *, causal: bool = True, lse=None):
+def _strides(t):
+    return t.stride()[:3]
+
+
+def flash_attention_bf16(q, k, v, *, causal: bool = True, window: int = 0,
+                         lse=None):
     """The tensor-core kernel; operands already checked by ``kernel_route``.
     ``lse``: None, or a contiguous fp32 (B, H, S) the kernel fills with each
     row's log-sum-exp, for the backward."""
-    out = _launch("flash_attention_sm90", q, k, v, causal, _tma,
-                  None if lse is None else lse.data_ptr())
+    out = _launch("flash_attention_sm90", q, k, v, causal, window, _tma, lse)
     flash_attention_bf16.launches += 1
     return out
 
 
-def flash_attention_fp32(q, k, v, *, causal: bool = True):
-    """The scalar kernel; operands already checked by ``kernel_route``."""
-    out = _launch("flash_attention", q, k, v, causal,
-                  lambda t: t.stride()[:3])
+def flash_attention_fp32(q, k, v, *, causal: bool = True, window: int = 0,
+                         lse=None):
+    """The scalar kernel; operands already checked by ``kernel_route``.
+    ``lse`` as :func:`flash_attention_bf16`'s."""
+    out = _launch("flash_attention", q, k, v, causal, window, _strides, lse)
     flash_attention_fp32.launches += 1
     return out
 
@@ -292,36 +334,49 @@ def backward_padded_rows(S: int) -> int:
     return -(-S // BWD_BLOCK_Q) * BWD_BLOCK_Q
 
 
-def flash_attention_bwd_bf16(q, k, v, out, lse, dy, *, causal: bool = True):
-    """The bf16 backward kernel: ``(dq, dk, dv)`` of the forward that gave
-    ``out`` and ``lse`` (fp32 (B, H, S)), for the upstream gradient ``dy``,
-    as :func:`flash_attention_backward` computes them. q, k, v: the
-    forward's operands; dy is read through its strides where TMA can (a
-    contiguous copy otherwise). Raises for what the kernel does not take.
-    Counts one launch."""
+def _backward_operands(q, k, v, out, lse, dy, dtype):
+    """Check a backward kernel's operands (``dtype`` q, k, v, out and dy,
+    an fp32 contiguous (B, H, S) lse, all on one CUDA device); return dy,
+    copied where its last dim is not contiguous."""
     if not (q.is_cuda and k.device == q.device == v.device == out.device
             == lse.device == dy.device):
         raise ValueError("flash_attention backward kernel needs CUDA tensors "
                          "on one device")
-    if not q.dtype == k.dtype == v.dtype == out.dtype == dy.dtype \
-            == torch.bfloat16 or lse.dtype != torch.float32:
-        raise TypeError(f"flash_attention backward kernel takes bf16 q, k, v, "
-                        f"out, dy and an fp32 lse, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}, {out.dtype}, {dy.dtype}, {lse.dtype}")
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+    if not q.dtype == k.dtype == v.dtype == out.dtype == dy.dtype == dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention backward kernel takes {dtype} q, k, "
+                        f"v, out, dy and an fp32 lse, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {out.dtype}, {dy.dtype}, "
+                        f"{lse.dtype}")
+    B, S, H, _ = q.shape
     kernel_route(q.dtype, q.shape, q.stride(), q.data_ptr(), k.shape,
                  ((k.stride(), k.data_ptr()), (v.stride(), v.data_ptr())))
     if out.shape != q.shape or dy.shape != q.shape \
             or lse.shape != (B, H, S) or not lse.is_contiguous():
         raise ValueError(f"out{tuple(out.shape)}, dy{tuple(dy.shape)} and "
                          f"lse{tuple(lse.shape)} do not fit q{tuple(q.shape)}")
-    if out.stride(3) != 1 or tma_problem(out.shape, out.stride(),
-                                         out.data_ptr()):
-        raise ValueError("flash_attention backward kernel reads out in "
-                         "16-byte aligned rows, as TMA would")
-    if dy.stride(3) != 1 or tma_problem(dy.shape, dy.stride(), dy.data_ptr()):
+    if out.stride(3) != 1 or (dtype == torch.bfloat16 and tma_problem(
+            out.shape, out.stride(), out.data_ptr())):
+        raise ValueError("flash_attention backward kernel reads out in rows "
+                         "with a contiguous last dim (16-byte aligned in "
+                         "bf16, as TMA would)")
+    if dy.stride(3) != 1 or (dtype == torch.bfloat16 and tma_problem(
+            dy.shape, dy.stride(), dy.data_ptr())):
         dy = dy.contiguous()
+    return dy
+
+
+def flash_attention_bwd_bf16(q, k, v, out, lse, dy, *, causal: bool = True,
+                             window: int = 0):
+    """The bf16 backward kernel: ``(dq, dk, dv)`` of the forward that gave
+    ``out`` and ``lse`` (fp32 (B, H, S)), for the upstream gradient ``dy``,
+    as :func:`flash_attention_backward` computes them. q, k, v: the
+    forward's operands; dy is read through its strides where TMA can (a
+    contiguous copy otherwise). Raises for what the kernel does not take.
+    Counts one launch."""
+    dy = _backward_operands(q, k, v, out, lse, dy, torch.bfloat16)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     S_pad = backward_padded_rows(S)
     vecs = torch.empty((2, B * H * S_pad), dtype=torch.float32,
                        device=q.device)
@@ -337,25 +392,66 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dy, *, causal: bool = True):
         dy.data_ptr(), lse.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(),
-        B, S, H, KV, hd, splits, *_tma(q), *_tma(k), *_tma(v), *_tma(out), *_tma(dy),
-        *_tma(dq), *_tma(dk), *_tma(dv), hd ** -0.5, int(bool(causal)),
+        B, S, H, KV, hd, splits, *_tma(q), *_tma(k), *_tma(v), *_tma(out),
+        *_tma(dy), *_tma(dq), *_tma(dk), *_tma(dv), hd ** -0.5,
+        int(bool(causal)), kernel_window(window, S),
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd_sm90")
     flash_attention_bwd_bf16.launches += 1
     return dq, dk, dv
 
 
+def flash_attention_bwd_fp32(q, k, v, out, lse, dy, *, causal: bool = True,
+                             window: int = 0):
+    """The float32 backward kernel (``csrc/flash_attention_bwd.cu``, scalar
+    fp32): ``(dq, dk, dv)`` as :func:`flash_attention_bwd_bf16` gives them,
+    from the fp32 forward's ``out`` and ``lse``; every operand read through
+    its strides with a contiguous last dim (dy copied otherwise). Raises
+    for what the kernel does not take. Counts one launch."""
+    dy = _backward_operands(q, k, v, out, lse, dy, torch.float32)
+    B, S, H, hd = q.shape
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib, fn = _lib("flash_attention_bwd")
+    _check(lib, fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dy.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        *_strides(dy), *_strides(dq), *_strides(dk), *_strides(dv),
+        hd ** -0.5, int(bool(causal)), kernel_window(window, S),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_bwd")
+    flash_attention_bwd_fp32.launches += 1
+    return dq, dk, dv
+
+
 flash_attention_bf16.launches = 0
 flash_attention_fp32.launches = 0
 flash_attention_bwd_bf16.launches = 0
+flash_attention_bwd_fp32.launches = 0
 KERNELS = {"bf16": flash_attention_bf16, "fp32": flash_attention_fp32}
+BACKWARD_KERNELS = {"bf16": flash_attention_bwd_bf16,
+                    "fp32": flash_attention_bwd_fp32}
 
 
-def flash_attention(q, k, v, *, causal: bool = True, lse=None):
+def check_window(causal: bool, window: int) -> None:
+    """K2 takes a window only under the causal mask (no config makes a
+    window without it): raises ValueError for one without, or below 0."""
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention takes a window of 0 or more, and "
+                         f"only when causal (got window={window}, "
+                         f"causal={causal})")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    lse=None):
     """Launch the kernel of q's dtype. q: (B, S, H, hd); k, v: (B, S, KV, hd),
-    on one CUDA device. ``lse``: a contiguous fp32 (B, H, S) for the bf16
-    kernel to fill with each row's log-sum-exp (the fp32 route writes
-    none)."""
+    on one CUDA device; ``window``: a causal sliding window of that many
+    keys (0: none). ``lse``: a contiguous fp32 (B, H, S) for the kernel to
+    fill with each row's log-sum-exp, for the backward."""
     if not (q.device.type == k.device.type == v.device.type == "cuda") \
             or not (q.device == k.device == v.device):
         raise ValueError("flash_attention kernel needs CUDA tensors on one "
@@ -365,48 +461,43 @@ def flash_attention(q, k, v, *, causal: bool = True, lse=None):
                         f"{v.dtype}")
     if k.shape != v.shape:
         raise ValueError(f"k{tuple(k.shape)} and v{tuple(v.shape)} differ")
+    check_window(causal, window)
     route = kernel_route(q.dtype, q.shape, q.stride(), q.data_ptr(), k.shape,
                          ((k.stride(), k.data_ptr()),
                           (v.stride(), v.data_ptr())))
-    if lse is None:
-        return KERNELS[route](q, k, v, causal=causal)
-    B, S, H, _ = q.shape
-    if route != "bf16" or lse.dtype != torch.float32 \
-            or lse.shape != (B, H, S) or not lse.is_contiguous() \
-            or lse.device != q.device:
-        raise ValueError(f"only the bf16 kernel writes a log-sum-exp, into a "
-                         f"contiguous fp32 ({B}, {H}, {S}) on q's device")
-    return flash_attention_bf16(q, k, v, causal=causal, lse=lse)
+    if lse is not None:
+        B, S, H, _ = q.shape
+        if lse.dtype != torch.float32 or lse.shape != (B, H, S) \
+                or not lse.is_contiguous() or lse.device != q.device:
+            raise ValueError(f"the log-sum-exp goes into a contiguous fp32 "
+                             f"({B}, {H}, {S}) on q's device")
+    return KERNELS[route](q, k, v, causal=causal, window=window, lse=lse)
 
 
 def new_lse(q):
-    """The (B, H, S) fp32 tensor the bf16 forward writes its LSE into."""
+    """The (B, H, S) fp32 tensor a forward kernel writes its LSE into."""
     B, S, H, _ = q.shape
     return torch.empty((B, H, S), dtype=torch.float32, device=q.device)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """The kernel of q's dtype under autograd, each direction launched and
-    counted. bf16: the forward also writes the LSE, and the backward is
-    :func:`flash_attention_bwd_bf16` on the saved q, k, v, output and LSE.
-    float32: the backward is :func:`flash_attention_backward` on q, k and
-    v (the fp32 route has no backward kernel)."""
+    counted: the forward also writes the LSE, and the backward is the
+    backward kernel of the same dtype (:func:`flash_attention_bwd_bf16` or
+    :func:`flash_attention_bwd_fp32`) on the saved q, k, v, output and
+    LSE."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
-        if ROUTES.get(q.dtype) != "bf16":
-            ctx.save_for_backward(q, k, v)
-            return flash_attention(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
         lse = new_lse(q)
-        out = flash_attention(q, k, v, causal=causal, lse=lse)
+        out = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         saved = ctx.saved_tensors
-        if len(saved) == 3:
-            return (*flash_attention_backward(*saved, dy, ctx.causal), None)
-        return (*flash_attention_bwd_bf16(*saved, dy, causal=ctx.causal),
-                None)
+        kernel = BACKWARD_KERNELS[ROUTES[saved[0].dtype]]
+        return (*kernel(*saved, dy, causal=ctx.causal, window=ctx.window),
+                None, None)

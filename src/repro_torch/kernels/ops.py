@@ -5,23 +5,25 @@ kernel, which launches or raises: there is no fallback. Any other device
 raises. On CUDA, a call that autograd records (grad enabled and an input
 that requires grad) goes through the kernel's ``autograd.Function``, whose
 forward launches the same kernel and whose backward launches the kernel's
-backward (K1: ``rmsnorm_bwd``; K2 bf16: ``flash_attention_bwd_bf16``, from
-the output and log-sum-exp the forward saved; K2 fp32: the closed form,
-the fp32 route having no backward kernel); every other call launches the
-forward directly, without autograd's host cost and without the LSE. The
+backward (K1: ``rmsnorm_bwd``; K2: ``flash_attention_bwd_bf16`` or
+``flash_attention_bwd_fp32`` by dtype, from the output and log-sum-exp the
+forward saved); every other call launches the forward directly, without
+autograd's host cost and without the LSE. The
 closed forms (``rmsnorm_backward``, ``flash_attention_backward``) are the
 backward kernels' plain versions: the CPU's gradients. Each kernel wrapper
 counts its launches (``launch_counts``), on both branches: RMSNorm in all
 and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``), its backward
 (``rmsnorm_bwd``); attention per route (bf16 on tensor cores, fp32
-scalar), with ``flash_attention`` their sum, and the bf16 backward
-(``flash_attention_bwd_bf16``).
+scalar), with ``flash_attention`` their sum, and each route's backward
+(``flash_attention_bwd_bf16``, ``flash_attention_bwd_fp32``). K2 takes a
+causal sliding window (``window``, 0 = none) on every branch; a window
+without the causal mask raises.
 
 A DTensor (a parameter or activation on a ``DeviceMesh``) or a fake tensor
 (the dry run's ``FakeTensorMode``) takes neither branch: it goes through
 the kernel's custom op, ``repro_torch::rmsnorm`` or
 ``repro_torch::flash_attention`` (which also returns the LSE, (B, H, 0)
-unless autograd records a bf16 call), whose autograd formula calls the
+unless autograd records the call), whose autograd formula calls the
 backward's op, ``repro_torch::rmsnorm_backward`` or
 ``repro_torch::flash_attention_backward``, on the local shards. Each op
 has a fake implementation (shapes and dtypes only: under the fake mode
@@ -48,7 +50,8 @@ from . import rmsnorm as _rn
 
 _KERNELS = {"rmsnorm": _rn.rmsnorm, "rmsnorm_bwd": _rn.rmsnorm_bwd,
             **{f"flash_attention_{r}": fn for r, fn in _fa.KERNELS.items()},
-            "flash_attention_bwd_bf16": _fa.flash_attention_bwd_bf16}
+            **{f"flash_attention_bwd_{r}": fn
+               for r, fn in _fa.BACKWARD_KERNELS.items()}}
 
 
 def _route(t, name):
@@ -77,32 +80,28 @@ def _rmsnorm_direct(x, scale, eps):
     return _rn.rmsnorm_plain(x, scale, eps)
 
 
-def _flash_direct(q, k, v, causal):
+def _flash_direct(q, k, v, causal, window):
+    _fa.check_window(causal, window)
     if _route(q, "flash_attention"):
         if _recorded(q, k, v):
-            return _fa.FlashAttentionFunction.apply(q, k, v, causal)
-        return _fa.flash_attention(q, k, v, causal=causal)
-    return _fa.flash_attention_plain(q, k, v, causal=causal)
+            return _fa.FlashAttentionFunction.apply(q, k, v, causal, window)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
-def _saves_lse(q, with_lse: bool) -> bool:
-    """Whether the custom op returns a real LSE: only for a bf16 call whose
-    backward (the kernel) reads it."""
-    return with_lse and q.dtype == torch.bfloat16
-
-
-def _flash_with_lse(q, k, v, causal, with_lse):
-    """(out, lse) on a plain tensor; lse (B, H, S) where ``_saves_lse``,
-    else (B, H, 0)."""
+def _flash_with_lse(q, k, v, causal, window, with_lse):
+    """(out, lse) on a plain tensor; lse (B, H, S) where ``with_lse`` (the
+    backward kernel reads it), else (B, H, 0)."""
+    _fa.check_window(causal, window)
     B, S, H, _ = q.shape
-    keep = _saves_lse(q, with_lse)
     if _route(q, "flash_attention"):
-        lse = q.new_empty((B, H, S if keep else 0), dtype=torch.float32)
-        return _fa.flash_attention(q, k, v, causal=causal,
-                                   lse=lse if keep else None), lse
-    if keep:
-        return _fa.flash_attention_plain_lse(q, k, v, causal=causal)
-    return (_fa.flash_attention_plain(q, k, v, causal=causal),
+        lse = q.new_empty((B, H, S if with_lse else 0), dtype=torch.float32)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   lse=lse if with_lse else None), lse
+    if with_lse:
+        return _fa.flash_attention_plain_lse(q, k, v, causal=causal,
+                                             window=window)
+    return (_fa.flash_attention_plain(q, k, v, causal=causal, window=window),
             q.new_empty((B, H, 0), dtype=torch.float32))
 
 
@@ -112,13 +111,12 @@ def _rmsnorm_backward_direct(x, scale, dy, eps):
     return _rn.rmsnorm_backward(x, scale, dy, eps)
 
 
-def _flash_backward_direct(q, k, v, out, lse, dy, causal):
-    """bf16 on CUDA: the backward kernel; fp32 on CUDA (no backward kernel)
-    and the CPU: the closed form."""
-    if _route(q, "flash_attention") and q.dtype == torch.bfloat16:
-        return _fa.flash_attention_bwd_bf16(q, k, v, out, lse, dy,
-                                            causal=causal)
-    return _fa.flash_attention_backward(q, k, v, dy, causal)
+def _flash_backward_direct(q, k, v, out, lse, dy, causal, window):
+    """CUDA: the backward kernel of q's dtype; the CPU: the closed form."""
+    if _route(q, "flash_attention"):
+        kernel = _fa.BACKWARD_KERNELS[_fa.ROUTES[q.dtype]]
+        return kernel(q, k, v, out, lse, dy, causal=causal, window=window)
+    return _fa.flash_attention_backward(q, k, v, dy, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -185,26 +183,31 @@ def _(x, scale, dy, eps):
     return x.new_empty(x.shape), scale.new_empty(scale.shape)
 
 
+# ``window`` leads the non-tensor arguments: DTensor's sharding cache keys an
+# op's arguments from its first int on (``register_sharding``'s schema
+# info), so ``causal`` and ``with_lse``, which set the LSE's shape, are keyed
+# too.
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool,
+                       window: int, causal: bool,
                        with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.no_grad():
-        out, lse = _flash_with_lse(q, k, v, causal, with_lse)
+        out, lse = _flash_with_lse(q, k, v, causal, window, with_lse)
         return out.contiguous(), lse
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal, with_lse):
+def _(q, k, v, window, causal, with_lse):
+    _fa.check_window(causal, window)
     B, S, H, _ = q.shape
-    n = S if _saves_lse(q, with_lse) else 0
-    return q.new_empty(q.shape), q.new_empty((B, H, n), dtype=torch.float32)
+    return q.new_empty(q.shape), q.new_empty((B, H, S if with_lse else 0),
+                                             dtype=torch.float32)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal, with_lse = inputs
+    q, k, v, window, causal, with_lse = inputs
     ctx.save_for_backward(q, k, v, *output)
-    ctx.causal = causal
+    ctx.causal, ctx.window = causal, window
 
 
 def _lse_placements(pl):
@@ -230,11 +233,13 @@ def _flash_bwd(ctx, dy, dlse):
         pl = q.placements
         return (*local_map(
             flash_attention_backward_op, out_placements=(pl, pl, pl),
-            in_placements=(pl, pl, pl, pl, _lse_placements(pl), pl, None),
+            in_placements=(pl, pl, pl, pl, _lse_placements(pl), pl, None,
+                           None),
             device_mesh=q.device_mesh, redistribute_inputs=True)(
-                q, k, v, out, lse, dy, ctx.causal), None, None)
-    return (*flash_attention_backward_op(q, k, v, out, lse, dy, ctx.causal),
-            None, None)
+                q, k, v, out, lse, dy, ctx.causal, ctx.window), None, None,
+            None)
+    return (*flash_attention_backward_op(q, k, v, out, lse, dy, ctx.causal,
+                                         ctx.window), None, None, None)
 
 
 flash_attention_op.register_autograd(_flash_bwd, setup_context=_flash_setup)
@@ -244,14 +249,14 @@ flash_attention_op.register_autograd(_flash_bwd, setup_context=_flash_setup)
                          mutates_args=())
 def flash_attention_backward_op(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-        lse: torch.Tensor, dy: torch.Tensor,
-        causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lse: torch.Tensor, dy: torch.Tensor, causal: bool,
+        window: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     with torch.no_grad():
-        return _flash_backward_direct(q, k, v, out, lse, dy, causal)
+        return _flash_backward_direct(q, k, v, out, lse, dy, causal, window)
 
 
 @flash_attention_backward_op.register_fake
-def _(q, k, v, out, lse, dy, causal):
+def _(q, k, v, out, lse, dy, causal, window=0):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
@@ -275,11 +280,11 @@ def _register_sharding_rules() -> None:
         return out
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _flash_sharding(q, k, v, causal, with_lse):
+    def _flash_sharding(q, k, v, window, causal, with_lse):
         # (out, lse): the LSE (B, H, S) on batch or heads with the output
-        return [([Replicate(), Replicate()], [Replicate()] * 3 + [None] * 2),
-                ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None] * 2),
-                ([Shard(2), Shard(1)], [Shard(2)] * 3 + [None] * 2)]
+        return [([Replicate(), Replicate()], [Replicate()] * 3 + [None] * 3),
+                ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None] * 3),
+                ([Shard(2), Shard(1)], [Shard(2)] * 3 + [None] * 3)]
 
 
 @register_flop_formula(torch.ops.repro_torch.rmsnorm)
@@ -304,30 +309,35 @@ def _rmsnorm_backward_flop(x_shape, *args, out_shape=None, **kwargs) -> int:
     return 8 * n
 
 
-def _pairs(q_shape, k_shape, causal) -> int:
-    """The (query, key) pairs a kernel visits per (batch, head): all S*Sk,
-    or the S*(S+1)/2 on and below the diagonal when causal."""
-    S = q_shape[1]
-    return S * (S + 1) // 2 if causal else S * k_shape[1]
+def attention_pairs(S: int, Sk: int, causal: bool, window: int = 0) -> int:
+    """The (query, key) pairs the attention needs per (batch, head): all
+    S*Sk; the S*(S+1)/2 on and below the diagonal when causal; and with a
+    causal window, min(q + 1, window) for query q: w(w+1)/2 + (S - w) w
+    for a window w < S."""
+    if not causal:
+        return S * Sk
+    if window and window < S:
+        return window * (window + 1) // 2 + (S - window) * window
+    return S * (S + 1) // 2
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_flop(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
-                **kwargs) -> int:
-    """Two products of 2 operations a multiply-add over the pairs the kernel
-    visits."""
+def _flash_flop(q_shape, k_shape, v_shape, window, causal, *args,
+                out_shape=None, **kwargs) -> int:
+    """Two products of 2 operations a multiply-add over the pairs the
+    attention needs."""
     B, S, H, hd = q_shape
-    return 4 * B * H * hd * _pairs(q_shape, k_shape, causal)
+    return 4 * B * H * hd * attention_pairs(S, k_shape[1], causal, window)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
 def _flash_backward_flop(q_shape, k_shape, v_shape, out_shape_, lse_shape,
-                         dy_shape, causal, *args, out_shape=None,
+                         dy_shape, causal, window=0, *args, out_shape=None,
                          **kwargs) -> int:
     """Five products (S recomputed, dP, dV, dK, dQ) of 2 operations a
-    multiply-add over the pairs the kernel visits: 10 hd a pair."""
+    multiply-add over the pairs the attention needs: 10 hd a pair."""
     B, S, H, hd = q_shape
-    return 10 * B * H * hd * _pairs(q_shape, k_shape, causal)
+    return 10 * B * H * hd * attention_pairs(S, k_shape[1], causal, window)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -338,8 +348,9 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _rmsnorm_direct(x, scale, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd); ``window``:
+    a causal sliding window of that many keys (0: none)."""
     if is_dtensor(q):
         _register_sharding_rules()
         lse = _recorded(q, k, v)
@@ -351,11 +362,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
             # KV heads replicated where q's are sharded: each rank's q heads
             # against the KV heads they read
             return heads_local(lambda ql, kl, vl: flash_attention_op(
-                ql, kl, vl, causal, lse)[0], q, k, v)
-        return flash_attention_op(q, k, v, causal, lse)[0]
+                ql, kl, vl, window, causal, lse)[0], q, k, v)
+        return flash_attention_op(q, k, v, window, causal, lse)[0]
     if _wrapped(q):
-        return flash_attention_op(q, k, v, causal, _recorded(q, k, v))[0]
-    return _flash_direct(q, k, v, causal)
+        return flash_attention_op(q, k, v, window, causal,
+                                  _recorded(q, k, v))[0]
+    return _flash_direct(q, k, v, causal, window)
 
 
 def launch_counts() -> dict:

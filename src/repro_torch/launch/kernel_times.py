@@ -1,10 +1,13 @@
-"""Time K2's bf16 forward on the card at the serving paths' shapes.
+"""Time K2's bf16 forward and backward on the card at the serving and
+training paths' shapes.
 
     python -m repro_torch.launch.kernel_times [label]
 
-prints one JSON line: the label and the mean ms of one forward call
+prints one JSON line: the label, the mean ms of one forward call
 (``kernels.flash_attention.flash_attention``) at each shape of
-``SHAPES``, by CUDA events with the L2 flushed before each call, as
+``SHAPES`` and of one backward call (``flash_attention_bwd_bf16``, from
+the forward's LSE) at each of ``BWD_SHAPES``, by CUDA events with the
+L2 flushed before each call, as
 ``chip_smoke.py``'s ``time_ms`` times it. To compare two trees on one
 card, run this file against each tree's package in turns (parent,
 change, change, parent, ...), each from the root of its tree:
@@ -22,10 +25,14 @@ import sys
 import torch
 
 # (B, S, H, KV, hd, causal): kimi-k2's hd 112, whisper's encoder,
-# command-r's and yi-9b's long prefill, yi-9b's short prefill
+# command-r's and yi-9b's long prefill, yi-9b's short prefill, gemma3-12b's
+# global layers at hd 256, qwen2-vl's 1024 patches + 256 tokens
 SHAPES = ((1, 4096, 64, 8, 112, True), (4, 1500, 16, 16, 64, False),
           (1, 4096, 64, 8, 128, True), (1, 4096, 32, 4, 128, True),
-          (4, 256, 32, 4, 128, True))
+          (4, 256, 32, 4, 128, True), (1, 2048, 16, 8, 256, True),
+          (4, 1280, 12, 2, 128, True))
+# the backward's (B, S, H, KV, hd), causal: gpt's and yi-9b's training steps
+BWD_SHAPES = ((8, 1024, 12, 12, 64), (1, 4096, 32, 4, 128))
 CALLS = 30
 
 
@@ -62,7 +69,17 @@ def main(argv=None) -> int:
                    .bfloat16() for n in (H, KV, KV))
         out[f"{B}x{S} {H}/{KV} hd{hd}"] = time_ms(
             lambda: fa.flash_attention(q, k, v, causal=causal), CALLS, flush)
-    print(json.dumps({"label": label, "ms": out,
+    bwd = {}
+    for B, S, H, KV, hd in BWD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, dy = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+                       .bfloat16() for n in (H, KV, KV, H))
+        lse = fa.new_lse(q)
+        o = fa.flash_attention(q, k, v, causal=True, lse=lse)
+        bwd[f"{B}x{S} {H}/{KV} hd{hd}"] = time_ms(
+            lambda: fa.flash_attention_bwd_bf16(q, k, v, o, lse, dy,
+                                                causal=True), CALLS, flush)
+    print(json.dumps({"label": label, "ms": out, "backward_ms": bwd,
                       "card": torch.cuda.get_device_name(0)}))
     return 0
 

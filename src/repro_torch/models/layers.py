@@ -318,10 +318,13 @@ def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
     0..S-1. Returns (y, (k, v)).
 
     Routing: the flash-attention kernel computes exactly softmax(q k^T
-    hd^-0.5) v over keys 0..S-1 of the same sequence, causal or not. So a
-    layer goes to it when it has no window, no softcap, no ``kv_override``
-    (cross-attention: other keys, Sk != S) and default positions; every
-    other layer keeps the plain path, as the JAX package keeps XLA."""
+    hd^-0.5) v over keys 0..S-1 of the same sequence, causal or not, and
+    under the causal mask with a sliding window (``_mask``'s). So a layer
+    goes to it when it has no softcap, no ``kv_override`` (cross-attention:
+    other keys, Sk != S) and default positions, whatever its window (a
+    window without the causal mask, which no config makes, excepted);
+    every other layer keeps the plain path, as the JAX package keeps
+    XLA."""
     B, S, D = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     x = seq_gathered(x)
@@ -341,9 +344,10 @@ def attention(p, cfg: ModelConfig, x, positions=None, *, causal=True,
     # inside the block, seq is gathered (SP boundary is the residual)
     q = constrain(q, ("batch", None, "act_heads", None))
     k = constrain(k, ("batch", None, None, None))
-    if not window and not cfg.logit_softcap and kv_override is None \
-            and positions is None:
-        y = ops.flash_attention(q, k, v, causal=causal).reshape(B, S, h * hd)
+    if not cfg.logit_softcap and kv_override is None and positions is None \
+            and (causal or not window):
+        y = ops.flash_attention(q, k, v, causal=causal,
+                                window=window).reshape(B, S, h * hd)
     else:
         q_pos = torch.arange(S, device=x.device) if positions is None \
             else positions

@@ -239,6 +239,43 @@ def test_flash_launch_counters_per_route(cuda_device):
             counts["flash_attention"]) == (3, 2, 5)
 
 
+# (S, H, KV, window): windows that are no tile multiple, one of 1, one
+# a tile wide, ragged S, G = 1, 2 and 10 (recurrentgemma's 10 over 1)
+WINDOW_CASES = [(300, 4, 2, 100), (1000, 8, 4, 129), (257, 10, 1, 128),
+                (200, 4, 4, 1), (640, 8, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+@pytest.mark.parametrize("S,H,KV,window", WINDOW_CASES)
+def test_flash_window_kernel_matches_plain(cuda_device, dtype, hd, S, H, KV,
+                                           window):
+    """Both forward routes with a causal sliding window against the plain
+    version with the same window; one launch a call."""
+    q, k, v = _qkv(cuda_device, 2, S, H, KV, hd, dtype, seed=6)
+    n0 = _launches(dtype)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _launches(dtype) == n0 + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    else:
+        rel = (got.float() - want.float()).norm(dim=-1) \
+            / want.float().norm(dim=-1)
+        assert rel.max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_window_refuses_a_window_without_causal(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 64, 2, 1, 64, torch.bfloat16)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, v, causal=False, window=16)
+    assert ops.launch_counts() == counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma3-12b", "mixtral-8x7b",
                                   "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -578,6 +615,63 @@ def test_flash_backward_reads_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 1000])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+def test_flash_fp32_backward_kernel_matches_plain(cuda_device, hd, causal, G,
+                                                  S):
+    """K2's fp32 backward kernel against the closed form: dq, dk and dv
+    each within 2e-4 relative RMS (scalar fp32 throughout), one launch a
+    call; the fp32 forward's LSE within 1e-5 of the plain one's."""
+    q, k, v = _qkv(cuda_device, 2, S, 2 * G, 2, hd, torch.float32)
+    dy = torch.randn_like(q)
+    lse = tfa.new_lse(q)
+    out = tfa.flash_attention(q, k, v, causal=causal, lse=lse)
+    _, lse_ref = tfa.flash_attention_plain_lse(q, k, v, causal=causal)
+    n0 = tfa.flash_attention_bwd_fp32.launches
+    got = tfa.flash_attention_bwd_fp32(q, k, v, out, lse, dy, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_fp32.launches == n0 + 1
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    want = tfa.flash_attention_backward(q, k, v, dy, causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+    assert _bwd_rel(got, want) <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+@pytest.mark.parametrize("S,H,KV,window", WINDOW_CASES)
+def test_flash_window_backward_kernels_match_plain(cuda_device, dtype, hd, S,
+                                                   H, KV, window):
+    """Both backward kernels with a window against the closed form with the
+    same window (bf16 1e-2, fp32 2e-4 relative RMS each), from the
+    windowed forward's LSE (bf16 1e-3, fp32 1e-5 of the plain one's). A
+    window of 1 makes dq and dk 0 exactly (each query sees only its own
+    key: P = 1, dS = dP - delta = 0); there each element is held within
+    the limit of 0 instead."""
+    q, k, v = _qkv(cuda_device, 2, S, H, KV, hd, dtype, seed=7)
+    dy = torch.randn_like(q)
+    lse = tfa.new_lse(q)
+    out = tfa.flash_attention(q, k, v, causal=True, window=window, lse=lse)
+    _, lse_ref = tfa.flash_attention_plain_lse(q, k, v, causal=True,
+                                               window=window)
+    bf16 = dtype == torch.bfloat16
+    assert (lse - lse_ref).abs().max().item() <= (1e-3 if bf16 else 1e-5)
+    kernel = tfa.BACKWARD_KERNELS[tfa.ROUTES[dtype]]
+    got = kernel(q, k, v, out, lse, dy, causal=True, window=window)
+    want = tfa.flash_attention_backward(q, k, v, dy, True, window)
+    limit = 1e-2 if bf16 else 2e-4
+    for g, w in zip(got, want):
+        if w.abs().max().item() == 0:
+            assert g.float().abs().max().item() <= limit
+        else:
+            assert _rel_rms(g, w) <= limit
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [128, 768, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 4, 133, 4097])
@@ -613,20 +707,25 @@ def no_closed_forms(monkeypatch):
 @pytest.mark.cuda
 def test_one_autograd_call_launches_one_forward_and_one_backward(
         cuda_device, no_closed_forms):
-    """ops.rmsnorm and ops.flash_attention in bf16 under autograd: exactly
-    one forward and one backward kernel launch each, and no closed form."""
+    """ops.rmsnorm and ops.flash_attention in bf16, and ops.flash_attention
+    in fp32 with a window, under autograd: exactly one forward and one
+    backward kernel launch each, and no closed form."""
     x, s = _norm_inputs(cuda_device, 1024, 768, torch.bfloat16)
     q, k, v = _qkv(cuda_device, 2, 256, 8, 2, 64, torch.bfloat16)
     ops.reset_launch_counts()
     _grads(ops.rmsnorm, (x, s))
     _grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
            (q, k, v))
+    _grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
+                                               window=100),
+           (q.float(), k.float(), v.float()))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["rmsnorm"], counts["rmsnorm_bwd"],
             counts["flash_attention_bf16"],
             counts["flash_attention_bwd_bf16"],
-            counts["flash_attention_fp32"]) == (1, 1, 1, 1, 0)
+            counts["flash_attention_fp32"],
+            counts["flash_attention_bwd_fp32"]) == (1, 1, 1, 1, 1, 1)
 
 
 @pytest.mark.cuda
@@ -634,8 +733,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, no_tf32):
     """One step of reduced gpt (fp32) on the card and on the CPU from the
     same weights and batch: the loss, the gradient norm and the updated
     parameters agree within 1e-4; the step launched both kernels forward
-    (2 norms a layer + the final one; one attention a layer) and K1's
-    backward kernel as often (K2's fp32 route has no backward kernel)."""
+    (2 norms a layer + the final one; one attention a layer) and their
+    backward kernels as often (K2's through its fp32 route)."""
     from repro_torch.data import SyntheticTextDataset
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step, trainable
@@ -655,6 +754,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, no_tf32):
     assert counts["flash_attention_bf16"] == 0
     assert counts["rmsnorm_bwd"] == 2 * cfg.n_layers + 1
     assert counts["flash_attention_bwd_bf16"] == 0
+    assert counts["flash_attention_bwd_fp32"] == cfg.n_layers
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
                                    atol=0)

@@ -161,6 +161,27 @@ def test_remat_recompute_finds_the_mesh_on_another_thread(mesh22):
                if n.startswith("blocks."))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_on_dtensors_keys_the_lse_flag(mesh22, dtype):
+    """DTensor's sharding cache keys a custom op's non-tensor arguments
+    only from its first int on: the forward op's ``window`` leads them, so
+    a call that keeps the LSE after one that does not (the same shapes and
+    placements, as a recompute after a no-grad forward) gets (B, H, S) and
+    not the cached (B, H, 0); and each window its own entry."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.sharding.specs import distribute
+    B, S, H, KV, hd = 4, 32, 4, 2, 32
+    with FakeTensorMode():
+        q, k = (distribute(torch.empty(B, S, n, hd, dtype=dtype), mesh22,
+                           (Shard(0), Shard(2))) for n in (H, KV))
+        for keep in (False, True, False):
+            for window in (0, 8):
+                out, lse = ops.flash_attention_op(q, k, k, window, True,
+                                                  keep)
+                assert tuple(lse.shape) == (B, H, S if keep else 0)
+                assert tuple(out.shape) == (B, S, H, hd)
+
+
 def test_constrain_gives_a_contiguous_shard(mesh22):
     """A gather of an uneven shard can leave a slice of a padded buffer as
     the local tensor; constrain hands on a contiguous one, which a later
@@ -268,8 +289,8 @@ def test_flash_fake_is_the_kernels_shape_and_dtype(B, S, H, KV, hd, dtype,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_op_fake_and_flop_formula(dtype, causal):
-    """The forward op returns the LSE (B, H, S) only for a bf16 call that
-    keeps it for the backward kernel ((B, H, 0) otherwise); the backward
+    """The forward op returns the LSE (B, H, S) only for a call that keeps
+    it for the backward kernel ((B, H, 0) otherwise); the backward
     op's fake implementation gives the gradients' shapes and dtypes, and
     its FLOP formula the kernel's five products, 10 hd a visited pair."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -279,8 +300,8 @@ def test_flash_backward_op_fake_and_flop_formula(dtype, causal):
     with FakeTensorMode() as mode:
         qf, kf = mode.from_tensor(q), mode.from_tensor(k)
         for keep in (True, False):
-            out, lse = ops.flash_attention_op(qf, kf, kf, causal, keep)
-            n = S if keep and dtype == torch.bfloat16 else 0
+            out, lse = ops.flash_attention_op(qf, kf, kf, 0, causal, keep)
+            n = S if keep else 0
             assert (tuple(lse.shape), lse.dtype) == ((B, H, n),
                                                      torch.float32)
         with FlopCounterMode(display=False) as fc:

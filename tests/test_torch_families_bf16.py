@@ -79,9 +79,9 @@ def test_bf16_moe_with_global_layers_matches_jax(monkeypatch):
     with the XLA path's rounding, which is what is being held here: the
     MoE dispatch, its fp32 router and the promotions in bf16; the port's
     own path is held by the next test."""
-    def xla_numerics(q, k, v, *, causal=True):
+    def xla_numerics(q, k, v, *, causal=True, window=0):
         pos = torch.arange(q.shape[1])
-        mask = tlayers._mask(pos, pos, causal, 0)[None, None]
+        mask = tlayers._mask(pos, pos, causal, window)[None, None]
         return tlayers.gqa_attend(q, k, v, mask).reshape(q.shape)
 
     monkeypatch.setattr(ops, "flash_attention", xla_numerics)

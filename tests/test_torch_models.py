@@ -202,9 +202,9 @@ def _dispatch_counts(monkeypatch, cfg, batch, decode=False):
         calls["rmsnorm"] += 1
         return norm.fn(*a, **k)
 
-    def attn(q, k, v, *, causal=True):
-        calls["flash_attention"].append(causal)
-        return attn.fn(q, k, v, causal=causal)
+    def attn(q, k, v, *, causal=True, window=0):
+        calls["flash_attention"].append((causal, window))
+        return attn.fn(q, k, v, causal=causal, window=window)
 
     norm.fn, attn.fn = ops.rmsnorm, ops.flash_attention
     monkeypatch.setattr(ops, "rmsnorm", norm)
@@ -222,14 +222,15 @@ def _dispatch_counts(monkeypatch, cfg, batch, decode=False):
                          + ["kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("positions", [False, True])
 def test_which_attention_reaches_the_kernel(monkeypatch, arch, positions):
-    """K2 takes a layer with no window, no softcap, no kv_override and
-    default positions, causal or not: gemma3's global layers (not its local
-    ones), every kimi-k2 and qwen2-vl layer, whisper's encoder (causal=False)
-    and decoder self-attention (causal=True), not its cross-attention;
-    nothing of mixtral (windowed), mamba2 or recurrentgemma (local). With
-    explicit positions every layer keeps the plain path. K1 takes every
-    RMSNorm: 2 a layer + 1 (mamba2's norm and out_norm included), and
-    whisper's 3 a decoder layer + 2 an encoder layer + 2."""
+    """K2 takes a layer with no softcap, no kv_override and default
+    positions, causal or not, whatever its window: every attention layer of
+    gemma3 (its local ones with their window), mixtral (windowed),
+    recurrentgemma's local layers, kimi-k2 and qwen2-vl, whisper's encoder
+    (causal=False) and decoder self-attention (causal=True), not its
+    cross-attention; nothing of mamba2. With explicit positions every layer
+    keeps the plain path. K1 takes every RMSNorm: 2 a layer + 1 (mamba2's
+    norm and out_norm included), and whisper's 3 a decoder layer + 2 an
+    encoder layer + 2."""
     cfg = treg.load_config(arch).reduced()
     S = 16
     batch = {"tokens": torch.zeros(1, S, dtype=torch.long)}
@@ -245,14 +246,15 @@ def test_which_attention_reaches_the_kernel(monkeypatch, arch, positions):
     L = cfg.n_layers
     if cfg.family == "audio":
         norms = 3 * L + 2 * cfg.encoder_layers + 2
-        attn = [False] * cfg.encoder_layers + [True] * L
+        attn = [(False, 0)] * cfg.encoder_layers + [(True, 0)] * L
         if positions:   # the encoder's positions are its own: 0..F-1
-            attn = [False] * cfg.encoder_layers
+            attn = [(False, 0)] * cfg.encoder_layers
     else:
         norms = 2 * L + 1
-        glob = 0 if positions else sum(
-            cfg.pattern[i % len(cfg.pattern)] == "global" for i in range(L))
-        attn = [True] * glob
+        roles = [cfg.pattern[i % len(cfg.pattern)] for i in range(L)]
+        attn = [] if positions else [
+            (True, cfg.window if r == "local" else 0) for r in roles
+            if r in ("global", "local")]
     assert calls == {"rmsnorm": norms, "flash_attention": attn}
 
 

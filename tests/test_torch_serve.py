@@ -168,8 +168,8 @@ def test_converter_keeps_jax_layer_order():
 
 
 def test_prefill_goes_through_the_kernel_dispatch(monkeypatch):
-    """Every layer's norms and global attention reach ops; windowed layers
-    keep the plain path (gemma3: 10 local + 2 global layers)."""
+    """Every layer's norms and attention reach ops, windowed layers too
+    (gemma3: 10 local + 2 global layers)."""
     cfg = treg.load_config("gemma3-12b").reduced()
     model = treg.init_params(cfg, seed=0, device="cpu")
     calls = {"rmsnorm": 0, "flash_attention": 0}
@@ -186,7 +186,7 @@ def test_prefill_goes_through_the_kernel_dispatch(monkeypatch):
     tserve.prefill_logits(model, {"tokens": torch.zeros(1, 20,
                                                         dtype=torch.long)})
     assert calls == {"rmsnorm": 2 * cfg.n_layers + 1,
-                     "flash_attention": cfg.pattern.count("global") * 2}
+                     "flash_attention": cfg.n_layers}
 
 
 def test_init_params_is_seeded_and_follows_fan_in():

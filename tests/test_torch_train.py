@@ -123,17 +123,19 @@ def test_flash_attention_backward_is_the_vjp(B, S, H, KV, hd, causal):
 def test_custom_op_gradients_are_the_vjp(causal):
     """Through ``repro_torch::flash_attention`` and ``repro_torch::rmsnorm``
     under autograd (their backward ops, CPU: the closed forms): fp32
-    gradients within 1e-5 of ``jax.vjp``; the forward op keeps no LSE for
-    fp32 and, for bf16, the plain LSE with the plain output, launching
-    nothing."""
+    gradients within 1e-5 of ``jax.vjp``; the forward op keeps the plain
+    LSE with the plain output in both dtypes (each route's backward kernel
+    reads it on the card), launching nothing."""
     B, S, H, KV, hd = 2, 40, 4, 2, 32
     rng = np.random.default_rng(4)
     q, k, v, dy = (rng.standard_normal((B, S, n, hd)).astype(np.float32)
                    for n in (H, KV, KV, H))
     ops.reset_launch_counts()
     qt, kt, vt = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
-    out, lse = ops.flash_attention_op(qt, kt, vt, causal, True)
-    assert lse.shape == (B, H, 0)
+    out, lse = ops.flash_attention_op(qt, kt, vt, 0, causal, True)
+    with torch.no_grad():
+        assert torch.equal(lse, flash_attention_plain_lse(
+            qt, kt, vt, causal=causal)[1])
     got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dy))
 
     def ref(q, k, v):
@@ -145,7 +147,7 @@ def test_custom_op_gradients_are_the_vjp(causal):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
     qb, kb, vb = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
-    out, lse = ops.flash_attention_op(qb, kb, vb, causal, True)
+    out, lse = ops.flash_attention_op(qb, kb, vb, 0, causal, True)
     want_out, want_lse = flash_attention_plain_lse(qb, kb, vb, causal=causal)
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
     x = rng.standard_normal((3, 7, 64)).astype(np.float32)
