@@ -7,9 +7,14 @@ Phase 0 prints the card and its power limit, builds the CUDA kernels with
 nvcc (sm_90a, one process per source, in parallel), prints ptxas's
 registers, shared memory and spills for each kernel, each attention
 library's dynamic shared memory by head dim and the RMSNorm ring's at
-D=4096 bf16 and D=8192 fp32, and the count of HGMMA (wgmma) instructions
-in the bf16 attention libraries' SASS (forward and backward), which must
-not be 0, and checks the backward's shared memory against
+D=4096 bf16 and D=8192 fp32, the fp32 route's shared memory and
+registers at every head dim and block rows its plan can pick (held to
+flash_attention.fp32_smem_bytes and to an SM's registers), and the count
+of tensor-core instructions in each attention library's SASS, HGMMA
+(wgmma) in the bf16 route's and HMMA (mma.sync, 3xTF32) in the fp32
+route's, forward and backward, none of which may be 0, and the rate the
+card reaches with TF32 mma.sync from registers (the fp32 route's
+ceiling); it checks the bf16 backward's shared memory against
 flash_attention.backward_smem_bytes. Phase 1 holds
 each kernel against its plain PyTorch version on the card, at the JAX
 kernel tests' shapes, at yi-9b's own and at gemma3-12b's global layers'
@@ -24,8 +29,8 @@ at hd 256 and gemma3-27b's 32 over 16 at hd 128, window 1024, mixtral's
 window 2048, and a window of 333 over a ragged S of 1000; K1 in bf16 at
 D = 1024, 1536, 2048, 2560, 5376, 7168 and 8192), in float32 and
 bfloat16 (RMSNorm: both launch
-plans at every shape; attention: two routes, bf16 on the tensor cores and
-float32 scalar), and times the kernel, the plain version and one PyTorch
+plans at every shape; attention: two routes, bf16 on wgmma and float32
+in 3xTF32 on mma.sync), and times the kernel, the plain version and one PyTorch
 library call beside the card's bound, and the host's time to enqueue one
 call (97 RMSNorm calls in a row, 48 attention calls, as a forward makes
 them); an empty kernel of the port's library, timed the same way, gives
@@ -123,7 +128,9 @@ backward at head dims 32, 64, 112, 128 and 256, causal and not, G = H /
 KV of 1, 2 and 8, S = 1024 and the ragged 1000, and at the windowed
 shapes of phase 1 with their windows (dq, dk and dv each within 1e-2
 relative RMS in bf16, 2e-4 in fp32; the saved LSE within 1e-3 and
-1e-5), K1's in fp32 and bf16 over
+1e-5; the fp32 backward one device kernel a call, by the profiler in
+a process of its own),
+K1's in fp32 and bf16 over
 widths 128-8192 and 1-8192 rows (dx as the forward's 1e-5 / 3e-2,
 dscale 1e-4 / 1e-2). Then gpt at full width and depth (12 x 768, vocab
 50257, bf16, seed 0) for 50 steps of 8 x 1024 tokens through
@@ -185,6 +192,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -205,13 +213,20 @@ PEAKS = {
     "H100": (3.35e12, 989e12, 67e12),   # SXM (80GB HBM3)
 }
 
+# The rate K2's bound is read against, by dtype: bf16 on wgmma; fp32 as
+# 3xTF32 (three TF32 products a product, at a third of TF32's dense rate,
+# itself half of bf16's): the fastest float32-accurate route of the card.
+# ``bound_fma_ms`` keeps the fp32 bound at the scalar FMA rate beside it.
+TC_RATE = {torch.bfloat16: torch.bfloat16, torch.float32: "tf32x3"}
+
 B_PROMPT, S_PROMPT, S_LONG, N_DECODE = 4, 256, 4096, 32
 N_LAYERS = 48                          # yi-9b
 N_NORMS = 2 * N_LAYERS + 1             # RMSNorm calls a forward or step makes
 D_MODEL = 4096                         # yi-9b
 BF16_LIB = "flash_attention_sm90"      # csrc/ source of the bf16 route
 BF16_BWD_LIB = "flash_attention_bwd_sm90"  # and of its backward
-FP32_BWD_LIB = "flash_attention_bwd"       # the fp32 route's backward
+FP32_LIB = "flash_attention"               # the fp32 route (3xTF32)
+FP32_BWD_LIB = "flash_attention_bwd"       # and its backward
 # Sequential (decode-path) vs parallel (prefill-path) logits in bf16: the
 # two paths round at different places (the flash kernel's tiled online
 # softmax vs the decode attention's one pass, GEMM vs GEMV summation order)
@@ -383,7 +398,7 @@ def phase0():
     n_sm = rn.sm_count(0)
     for name, path in libs.items():
         print(f"[ptxas] {path.name}\n{build.ptxas_report(name)}")
-        if name in (BF16_LIB, "flash_attention"):
+        if name == BF16_LIB:
             smem_bytes = getattr(ctypes.CDLL(str(path)),
                                  f"repro_{name}_smem_bytes")
             smem_bytes.argtypes = [ctypes.c_int]
@@ -398,23 +413,21 @@ def phase0():
                       f"{n_sm} SMs: {p.stages} stages of {D * dt.itemsize} "
                       f"bytes, {p.smem} bytes of dynamic shared memory a "
                       f"block, grid {p.grid} x {p.threads} threads")
-    smem_bytes = ctypes.CDLL(str(libs[FP32_BWD_LIB])) \
-        .repro_flash_attention_bwd_smem_bytes
-    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    for dq in (0, 1):
-        smem = {hd: smem_bytes(hd, dq) for hd in (32, 64, 112, 128, 256)}
-        print(f"[smem] {FP32_BWD_LIB} {'dQ' if dq else 'dK/dV'} kernel: "
-              f"dynamic shared memory a block, by head dim: {smem}")
-        check(all(0 < n <= rn.SMEM_LIMIT for n in smem.values()),
-              f"{FP32_BWD_LIB} shared memory {smem} beyond a block's")
-    for name in (BF16_LIB, BF16_BWD_LIB):
+    from repro_torch.kernels import flash_attention as fa
+    fp32_plan_check(libs)
+    # tensor-core instructions in each attention library: wgmma (HGMMA)
+    # in the bf16 route's, mma.sync (HMMA, 3xTF32) in the fp32 route's
+    for name, op in ((BF16_LIB, "HGMMA"), (BF16_BWD_LIB, "HGMMA"),
+                     (FP32_LIB, "HMMA"), (FP32_BWD_LIB, "HMMA")):
         sass = subprocess.run([cuobjdump(), "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-        print(f"[sass] {libs[name].name}: {hgmma} HGMMA instructions")
-        check(hgmma > 0, f"{name} has no wgmma (HGMMA)")
-    from repro_torch.kernels import flash_attention as fa
+        n = sum(op in ln for ln in sass.splitlines())
+        print(f"[sass] {libs[name].name}: {n} {op} instructions")
+        check(n > 0, f"{name} has no {op} instruction")
+    rate = fa.tf32_mma_rate()
+    print(f"[tf32] mma.sync.m16n8k8 TF32 from registers: {rate:.1f} TFLOP/s "
+          f"(3xTF32: {rate / 3:.1f}), the fp32 route's ceiling on {smi}")
     smem_bytes = ctypes.CDLL(str(libs[BF16_BWD_LIB])) \
         .repro_flash_attention_bwd_sm90_smem_bytes
     smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -426,6 +439,70 @@ def phase0():
                        for hd in fa.SUPPORTED_HEAD_DIMS},
               f"backward smem {smem} is not backward_smem_bytes'")
     return smi
+
+
+# ptxas's lines on one instance of the fp32 kernels: the kernel, its head
+# dim and block rows from the mangled name, then its registers and spills
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?"
+                          r"(flash_fwd_fp32|flash_bwd_fp32)ILi(\d+)ELi(\d+)E")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def fp32_instances(name):
+    """{(head dim, block rows): (registers, spill store bytes, spill load
+    bytes)} of the fp32 kernel instances in library ``name``, from ptxas's
+    report."""
+    from repro_torch.kernels import build
+    out, key, spill = {}, None, (0, 0)
+    for ln in build.ptxas_report(name).splitlines():
+        m = _PTXAS_ENTRY.search(ln)
+        if m:
+            key, spill = (int(m.group(2)), int(m.group(3))), (0, 0)
+            continue
+        m = _PTXAS_SPILL.search(ln)
+        if m and key:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = _PTXAS_REGS.search(ln)
+        if m and key:
+            out[key] = (int(m.group(1)), *spill)
+            key = None
+    return out
+
+
+def fp32_plan_check(libs):
+    """The fp32 route's shared memory and registers at every head dim and
+    block rows its plan can pick, printed and held to the plan: the
+    library's shared memory equal to ``fp32_smem_bytes``, within a block's,
+    and the registers of the plan's threads within an SM's 64K."""
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    for name, backward in ((FP32_LIB, False), (FP32_BWD_LIB, True)):
+        entry = ("repro_flash_attention_bwd_smem_bytes" if backward
+                 else "repro_flash_attention_smem_bytes")
+        smem_bytes = getattr(ctypes.CDLL(str(libs[name])), entry)
+        smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        regs = fp32_instances(name)
+        rows = {hd: [r for r in fa.FP32_ROWS
+                     if not (backward and hd == 256 and r > 32)]
+                for hd in fa.SUPPORTED_HEAD_DIMS}
+        rec = {}
+        for hd, rs in rows.items():
+            for r in rs:
+                warps = (fa.fp32_col_split(hd, r) if backward else 1) * r // 16
+                smem = smem_bytes(hd, r)
+                reg, st, ld = regs[(hd, r)]
+                rec[f"hd{hd}x{r}"] = dict(smem=smem, threads=32 * warps,
+                                         registers=reg, spill_stores=st,
+                                         spill_loads=ld)
+                check(smem == fa.fp32_smem_bytes(hd, r, backward)
+                      and smem <= rn.SMEM_LIMIT,
+                      f"{name} hd {hd} rows {r}: shared memory {smem} is "
+                      f"not fp32_smem_bytes' "
+                      f"{fa.fp32_smem_bytes(hd, r, backward)}")
+                check(reg * 32 * warps <= 65536,
+                      f"{name} hd {hd} rows {r}: {reg} registers x "
+                      f"{32 * warps} threads beyond an SM's")
+        print(f"[fp32-plan] {name}: {json.dumps(rec)}")
 
 
 def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
@@ -483,8 +560,11 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
         rec["library_host_us"] = host_us(sdpa)
         pairs = B * H * ops.attention_pairs(S, S, causal, window)
         rec["pairs"] = pairs
-        rec["bound_ms"], rec["bound_by"] = bound(
-            q.element_size() * 2 * B * S * hd * (H + KV), 4 * hd * pairs, dt)
+        nbytes = q.element_size() * 2 * B * S * hd * (H + KV)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4 * hd * pairs,
+                                                 TC_RATE[dt])
+        if dt == torch.float32:
+            rec["bound_fma_ms"] = bound(nbytes, 4 * hd * pairs, dt)[0]
         rec["tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     print(f"[K2 {rec['kernel']}] {json.dumps(rec)}")
@@ -494,7 +574,8 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
 def phase1(peaks):
     from repro_torch.kernels import rmsnorm as rn
     bw, bf16_rate, f32_rate = peaks
-    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
+    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate,
+            "tf32x3": bf16_rate / 6}
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     records = []
@@ -621,6 +702,10 @@ def phase1(peaks):
         for dt in dts:
             records.append(k2_record(shape, True, window, dt, timed, g, flush,
                                      bound, tag=tag))
+    fp32 = [r for r in records
+            if r.get("kernel") == "flash_attention_fp32"]
+    print(f"[fp32-worst] K2 fp32 forward at {len(fp32)} shapes: max abs err "
+          f"{max(r['max_abs_err'] for r in fp32)} (limit 2e-4 abs + rel)")
     return records
 
 
@@ -1769,13 +1854,12 @@ def plain_kernels():
 
 # The backward kernels' device kernels, by the names the profiler gives
 # them: K2 bf16's prologue (delta, LSE), main kernel and dQ kernel; K2
-# fp32's delta, dK/dV and dQ kernels; K1's pass and its column sum (both
-# named rmsnorm_bwd*)
+# fp32's one kernel (dK/dV and dQ blocks in one grid); K1's pass and its
+# column sum (both named rmsnorm_bwd*)
 BWD_KERNEL_NAMES = {"flash_attention_bwd_bf16": ("bwd_prologue",
                                                  "flash_bwd_sm90",
                                                  "flash_bwd_dq_sm90"),
-                    "flash_attention_bwd_fp32": ("bwd_delta", "flash_bwd_dkdv",
-                                                 "flash_bwd_dq<"),
+                    "flash_attention_bwd_fp32": ("flash_bwd_fp32",),
                     "rmsnorm_bwd": ("rmsnorm_bwd",)}
 
 
@@ -1793,7 +1877,7 @@ BWD_HEAD_DIMS = (32, 64, 112, 128, 256)
 BWD_GROUPS = (1, 2, 8)
 BWD_SEQS = (1024, 1000)
 BWD_REL_RMS = 1e-2           # each of dq, dk, dv (bf16; P and dS in bf16)
-BWD_REL_RMS_FP32 = 2e-4      # the same in fp32 (scalar fp32 throughout)
+BWD_REL_RMS_FP32 = 2e-4      # the same in fp32 (3xTF32 products, ~2^-21 each)
 LSE_ABS = 1e-3               # the forward's saved log-sum-exp (bf16 route)
 LSE_ABS_FP32 = 1e-5          # and the fp32 route's
 BWD_NORM_WIDTHS = (128, 768, 1024, 2048, 4096, 5376, 8192)
@@ -2104,6 +2188,46 @@ TRAIN_ATTN_SHAPES = (("gpt_train", (GPT_BATCH, GPT_SEQ, 12, 12, 64),
                      ("yi9b_train", (1, YI_SEQ, 32, 4, 128), torch.bfloat16))
 
 
+# The fp32 backward's device kernels, by the profiler in a process of its
+# own: inside this script a profiler session after the first can report
+# fewer of a call's kernels than it launched, or none (on an H100: 0.8
+# launches a call of a one-launch kernel, then none at all)
+_DEVICE_KERNELS = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import flash_attention as fa
+B, S, H, KV, hd, calls = map(int, sys.argv[2:])
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, dy = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+               for n in (H, KV, KV, H))
+lse = fa.new_lse(q)
+out = fa.flash_attention(q, k, v, causal=True, lse=lse)
+fn = lambda: fa.flash_attention_bwd_fp32(q, k, v, out, lse, dy, causal=True)
+fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+print(json.dumps({e.key: e.count / calls for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU}))
+"""
+
+
+def fp32_backward_kernels(shape, calls=5):
+    """{device kernel name: launches a call} of K2's fp32 backward at
+    ``shape`` = (B, S, H, KV, hd), causal, profiled in a fresh process
+    (the kernels this tree built)."""
+    r = subprocess.run([sys.executable, "-c", _DEVICE_KERNELS,
+                        str(ROOT / "src"), *map(str, shape), str(calls)],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"profiling the fp32 backward: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def kernel_split(fn, names, calls=5):
     """Mean device ms a call of ``fn`` in each kernel whose name contains
     one of ``names`` (the profiler's kernel names)."""
@@ -2129,7 +2253,8 @@ def train_kernel_records(peaks, smi):
     beside them."""
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     bw, bf16_rate, f32_rate = peaks
-    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate}
+    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate,
+            "tf32x3": bf16_rate / 6}
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -2225,6 +2350,15 @@ def train_kernel_records(peaks, smi):
             lambda: bwd(q, k, v, got, lse, dy, causal=True),
             BWD_KERNEL_NAMES[f"flash_attention_bwd_{route}"]
             + (("bwd_sum_heads",) if bf16 else ()))
+        if not bf16:
+            # the fp32 backward is one device launch a call
+            launched = fp32_backward_kernels((B, S, H, KV, hd))
+            rec["backward_device_kernels"] = launched
+            check(len(launched) == 1
+                  and "flash_bwd_fp32" in next(iter(launched))
+                  and next(iter(launched.values())) == 1,
+                  f"K2 fp32 backward {tag}: device kernels a call "
+                  f"{launched}, not one")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa(q, k, v):
@@ -2246,13 +2380,19 @@ def train_kernel_records(peaks, smi):
         pairs = B * H * S * (S + 1) // 2
         es = q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(
-            2 * es * B * S * hd * (H + KV), 4 * hd * pairs, dt)
+            2 * es * B * S * hd * (H + KV), 4 * hd * pairs, TC_RATE[dt])
         # backward: read q, k, v, dy, the forward's out and LSE, write dq,
         # dk, dv; five products (S recomputed, dP, dV, dQ, dK) over the
         # causal pairs
         reads = es * B * S * hd * (3 * H + 2 * KV) + 4 * B * H * S
+        bwd_bytes = reads + es * B * S * hd * (H + 2 * KV)
         rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
-            reads + es * B * S * hd * (H + 2 * KV), 10 * hd * pairs, dt)
+            bwd_bytes, 10 * hd * pairs, TC_RATE[dt])
+        if not bf16:
+            rec["bound_fma_ms"] = bound(2 * es * B * S * hd * (H + KV),
+                                        4 * hd * pairs, dt)[0]
+            rec["backward_bound_fma_ms"] = bound(bwd_bytes, 10 * hd * pairs,
+                                                 dt)[0]
         records.append(rec)
         print(f"[K2 train] {json.dumps(rec)}")
         del q, k, v, dy, got, want
@@ -2428,6 +2568,13 @@ def windowed_profiles():
     return 0
 
 
+def fma_bound(rec, prefix=""):
+    """An fp32 K2 record's bound at the scalar FMA rate, beside its bound
+    at the 3xTF32 rate (nothing for other records)."""
+    key = f"{prefix}bound_fma_ms"
+    return {key: rec[key]} if key in rec else {}
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2493,7 +2640,7 @@ def main(argv=()):
                                     "bound_ms", "bound_by", "library_ms",
                                     "tflops", "bound_share", "host_us",
                                     "library_host_us", "shape")},
-            card=smi))
+            **fma_bound(rec), card=smi))
     # K2 at the families' shapes, with the launches of the family's path
     for name, shape, causal, dt, arch in (
             ("flash_attention_bf16@hd112", KIMI_ATTN, True, "torch.bfloat16",
@@ -2524,7 +2671,7 @@ def main(argv=()):
                                     "bound_ms", "bound_by", "library_ms",
                                     "tflops", "bound_share", "host_us",
                                     "library_host_us", "shape")},
-            causal=causal, card=smi))
+            causal=causal, **fma_bound(rec), card=smi))
     # K2 with a window at the windowed layers' shapes, with the K2 launches
     # of the model's path (gemma3-12b: phase 3's two prefills; the others:
     # phase 6's path, global layers included)
@@ -2548,7 +2695,7 @@ def main(argv=()):
                                     "tflops", "bound_share", "host_us",
                                     "library_host_us", "shape", "window",
                                     "pairs")},
-            causal=True, card=smi))
+            causal=True, **fma_bound(rec), card=smi))
     # each kernel at the training path's shapes, with the launches of the
     # phase-9 path that gives it that shape: gpt's 50 steps at full width
     # (bf16), launch.train's reduced default (fp32)
@@ -2574,7 +2721,7 @@ def main(argv=()):
                                     "bound_ms", "bound_by", "library_ms",
                                     "backward_ms", "library_backward_ms",
                                     "backward_bound_ms", "shape")},
-            card=smi))
+            **fma_bound(rec), card=smi))
     # the backward kernels on the training paths: ms the kernel's, plain_ms
     # the closed form's, library_ms the PyTorch call's backward
     for name, key, counter, src, replaces in (
@@ -2600,7 +2747,7 @@ def main(argv=()):
             bound_ms=rec["backward_bound_ms"],
             bound_by=rec["backward_bound_by"],
             library_ms=rec["library_backward_ms"], shape=rec["shape"],
-            dtype=rec["dtype"], card=smi))
+            dtype=rec["dtype"], **fma_bound(rec, "backward_"), card=smi))
     # each kernel on phase 10's sharded path (DTensor parameters on a
     # (1, 1) mesh), at the 4 x 256 prefill's shapes
     for name, src, rec, launches in (
@@ -2622,7 +2769,7 @@ def main(argv=()):
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "shape")},
-            card=smi))
+            **fma_bound(rec), card=smi))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,8 +9,14 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
   ``wgmma`` tensor cores with K/V tiles fed by TMA. TMA reads q/k/v through
   tensor maps, so each needs a 16-byte aligned base and strides of whole
   16 bytes; other input raises ``ValueError`` (``tma_problem``).
-- float32: ``repro_torch/csrc/flash_attention.cu``, scalar fp32 FMAs, which
-  keep the float32 model within 1e-4 of the CPU where TF32 would not.
+- float32: ``repro_torch/csrc/flash_attention.cu``, both products on the
+  tensor cores in 3xTF32 (``mma.sync``; each fp32 operand split as
+  hi + lo TF32 in registers, three TF32 products into an fp32
+  accumulator, ~2^-21 relative error a product, where one TF32 product
+  would keep ~3 digits), K/V tiles through a ``cp.async`` ring. Any
+  strides with a contiguous last dim: 16-byte copies where every row is
+  16-byte aligned (``cp_async16_ok``), else 4-byte. Its tiles come from
+  :func:`fp32_plan`.
 
 Each source holds the note on what bounds it on the card and how its design
 answers that. This module binds the forward and backward kernels with
@@ -33,16 +39,19 @@ launch also writes each row's log-sum-exp, and the backward launches the
 backward kernel of q's dtype. bf16: ``csrc/flash_attention_bwd_sm90.cu``
 (``flash_attention_bwd_bf16``: dK and dV per key tile, dQ per query tile,
 every product on ``wgmma``, P recomputed per tile from that LSE). float32:
-``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_fp32``: the same
-plan in scalar fp32 FMAs). The closed form, ``flash_attention_backward``,
-is both backward kernels' plain version: the CPU takes it, a CUDA tensor
-never does. The Pallas kernel has no backward: the JAX package
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_fp32``: dK/dV
+blocks and dQ blocks in one launch, every product in 3xTF32, delta
+recomputed a block, GQA partials summed by the grid's last block of a key
+tile; :func:`fp32_plan` sizes it). The closed form,
+``flash_attention_backward``, is both backward kernels' plain version: the
+CPU takes it, a CUDA tensor never does. The Pallas kernel has no backward: the JAX package
 differentiates the XLA ops of its layers.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -58,6 +67,10 @@ TMA_MAX_STRIDE = 2**40  # bytes
 # and keys a step
 BWD_BLOCK_K, BWD_BLOCK_Q = 128, 64
 BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
+# the float32 route's tiles (csrc/flash_attention.cu, flash_attention_bwd.cu)
+FP32_ROWS = (64, 32, 16)   # block rows the plan picks from, largest first
+FP32_BWD_STEP = 32         # rows of the tiles a backward block steps over
+N_SM = 132                 # an H100 SXM's SMs: the plan's default
 
 
 def key_mask(S: int, Sk: int, causal: bool, window: int, device=None):
@@ -75,6 +88,109 @@ def key_mask(S: int, Sk: int, causal: bool, window: int, device=None):
     if window:
         m &= q - k < window
     return m
+
+
+class Fp32Plan(NamedTuple):
+    """How the float32 route's kernels tile a problem (:func:`fp32_plan`).
+
+    ``rows``: a block's rows, 16, 32 or 64 (forward: its query tile;
+    backward: a dK/dV block's key tile and a dQ block's query tile).
+    ``step``: rows of the tiles a block steps over (forward: keys; backward:
+    queries for dK/dV, keys for dQ). ``split``: warps that share 16 rows,
+    each taking 1/split of hd's columns (backward; 1 in the forward).
+    ``splits``: blocks a KV head's query heads are split over (backward;
+    their fp32 partials summed in order by the last one). ``warps`` a
+    block, ``kv_blocks`` (dK/dV, 0 in the forward) and ``q_blocks`` in the
+    one grid, ``smem``: dynamic shared memory bytes a block."""
+    rows: int
+    step: int
+    split: int
+    splits: int
+    warps: int
+    kv_blocks: int
+    q_blocks: int
+    smem: int
+
+
+def fp32_step(hd: int, backward: bool = False) -> int:
+    """Rows of the tiles an fp32 block steps over: the forward's key tile
+    is 64 at hd <= 64 and 32 above (O is hd / 2 registers a thread); the
+    backward's is FP32_BWD_STEP."""
+    if backward:
+        return FP32_BWD_STEP
+    return 64 if hd <= 64 else 32
+
+
+def fp32_col_split(hd: int, rows: int) -> int:
+    """Warps of the fp32 backward that share 16 rows at head dim ``hd`` with
+    ``rows`` block rows: so that dK and dV (or dQ) fit a warp's registers,
+    1 up to hd 64, 2 at 112 and 128, 4 at 256; and at 16-row blocks (a
+    problem too small to fill the card) as many as hd's columns allow, 4
+    (hd 112: 2), so that a block's few steps run on more warps."""
+    if rows == 16:
+        return 2 if hd == 112 else 4
+    return 1 if hd <= 64 else 2 if hd <= 128 else 4
+
+
+def fp32_smem_bytes(hd: int, rows: int, backward: bool = False) -> int:
+    """Dynamic shared memory a block of the fp32 forward (or backward) takes
+    at head dim ``hd`` with ``rows`` block rows, as ``smem_bytes`` /
+    ``Tile::SMEM`` of the sources: rows padded to hd + 4 floats. Forward:
+    the Q tile and a two-stage ring of K and V tiles. Backward: two tiles of
+    ``rows`` (K, V or Q, dO), a two-stage ring of step tiles (Q, dO and,
+    up to hd 128, O; or K, V), LSE and delta rows, and P and dS tiles
+    padded to step + 8. A pure function."""
+    ld = hd + 4
+    step = fp32_step(hd, backward)
+    if not backward:
+        return 4 * ld * (rows + 4 * step)
+    ring = (6 if hd <= 128 else 4) * step * ld
+    return 4 * (2 * rows * ld + ring + 4 * max(rows, step)
+                + 2 * rows * (step + 8))
+
+
+def fp32_plan(B: int, S: int, H: int, KV: int, hd: int,
+              backward: bool = False, n_sm: int = N_SM) -> Fp32Plan:
+    """The float32 route's tiles for a (B, S, H over KV, hd) problem. Blocks
+    take 64 rows (the backward at hd 256: 32, for shared memory). Where the
+    grid would leave SMs idle, fewer than ``n_sm`` forward blocks or dK/dV
+    blocks in the backward, the backward first splits a KV head's G = H /
+    KV query heads over more blocks (a divisor of G, smallest first: fp32
+    partials, but K and V tiles still read once a block), then halves the
+    rows to 32 and then 16. Every plan fits a block's 227 KB of shared
+    memory. A pure function."""
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    if H % KV:
+        raise ValueError(f"{H} heads over {KV} KV heads")
+
+    def tiles(rows):
+        return -(-S // rows)
+    rows = 32 if backward and hd == 256 else FP32_ROWS[0]
+    if not backward:
+        while rows > FP32_ROWS[-1] and tiles(rows) * H * B < n_sm:
+            rows //= 2
+        return Fp32Plan(rows, fp32_step(hd), 1, 1, rows // 16, 0,
+                        tiles(rows) * H * B, fp32_smem_bytes(hd, rows))
+    G = H // KV
+    splits = 1
+    while tiles(rows) * KV * B * splits < n_sm and splits < G:
+        splits = next(d for d in range(splits + 1, G + 1) if G % d == 0)
+    while rows > FP32_ROWS[-1] and tiles(rows) * KV * B * splits < n_sm:
+        rows //= 2
+    split = fp32_col_split(hd, rows)
+    return Fp32Plan(rows, FP32_BWD_STEP, split, splits, split * rows // 16,
+                    tiles(rows) * KV * B * splits, tiles(rows) * H * B,
+                    fp32_smem_bytes(hd, rows, True))
+
+
+def cp_async16_ok(shape, strides, data_ptr: int) -> bool:
+    """Whether 16-byte ``cp.async`` copies can read every row of an fp32
+    (B, S, heads, hd) operand with a contiguous last dim: a 16-byte aligned
+    base and (batch, seq, head) strides of whole 16 bytes (a dimension of
+    size 1 is never stepped over). A pure function."""
+    return data_ptr % 16 == 0 and all(
+        st % 4 == 0 for n, st in zip(shape[:3], strides[:3]) if n > 1)
 
 
 def _plain_scores(q, k, causal, window):
@@ -218,16 +334,16 @@ _FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p])
 _ARGTYPES = {
-    "flash_attention": _FWD_ARGS,
+    # the fp32 forward adds the plan's rows and step and the copy width
+    "flash_attention": _FWD_ARGS[:-1] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "flash_attention_sm90": _FWD_ARGS,
     "flash_attention_bwd_sm90": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                                  + [ctypes.c_int64] * 24
                                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p]),
-    "flash_attention_bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                            + [ctypes.c_int64] * 24
-                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p])}
+    "flash_attention_bwd": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                            + [ctypes.c_int64] * 24 + [ctypes.c_float]
+                            + [ctypes.c_int] * 7 + [ctypes.c_void_p])}
 # each library's C entry
 _ENTRIES = {"flash_attention": "repro_flash_attention_fwd",
             "flash_attention_sm90": "repro_flash_attention_sm90_fwd",
@@ -252,7 +368,9 @@ def _check(lib, err, name):
                            f"({lib.repro_cuda_error_string(err).decode()})")
 
 
-def _launch(name, q, k, v, causal, window, strides, lse):
+def _launch(name, q, k, v, causal, window, strides, lse, *extra):
+    """Launch a forward entry; ``extra``: the arguments between the LSE
+    pointer and the stream (the fp32 entry's plan numbers)."""
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lib, fn = _lib(name)
@@ -260,9 +378,25 @@ def _launch(name, q, k, v, causal, window, strides, lse):
                    B, S, H, k.shape[2], hd, *strides(q), *strides(k),
                    *strides(v), *out.stride()[:3], hd ** -0.5,
                    int(bool(causal)), kernel_window(window, S),
-                   None if lse is None else lse.data_ptr(),
+                   None if lse is None else lse.data_ptr(), *extra,
                    torch.cuda.current_stream(q.device).cuda_stream), name)
     return out
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _device_plan(q, k, backward):
+    B, S, H, hd = q.shape
+    return fp32_plan(B, S, H, k.shape[2], hd, backward,
+                     _sm_count(q.device.index))
+
+
+def _vec(*ts) -> int:
+    return int(all(cp_async16_ok(t.shape, t.stride(), t.data_ptr())
+                   for t in ts))
 
 
 def _tma(t):
@@ -271,6 +405,36 @@ def _tma(t):
 
 def _strides(t):
     return t.stride()[:3]
+
+
+def tf32_mma_rate(iters: int = 4000) -> float:
+    """TFLOP/s the current card reaches with TF32 ``mma.sync.m16n8k8`` from
+    registers alone (``csrc/flash_attention.cu``'s ``tf32_mma_rate``: 4
+    independent sums a warp, 8 warps an SM), by CUDA events: the ceiling
+    of the fp32 route's products, which 3xTF32 divides by three. Runs on
+    the card only."""
+    n_sm = _sm_count(torch.cuda.current_device())
+    lib, _ = _lib("flash_attention")
+    fn = lib.repro_tf32_mma_rate
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(2 * n_sm * 128, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _check(lib, fn(out.data_ptr(), 2 * n_sm, iters, stream),
+               "tf32_mma_rate")
+    best = float("inf")
+    for _ in range(5):          # the first launches also raise the clocks
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    products = 2 * n_sm * 4 * 4 * iters        # blocks x warps x sums x iters
+    return products * 2048 / (best * 1e-3) / 1e12
 
 
 def flash_attention_bf16(q, k, v, *, causal: bool = True, window: int = 0,
@@ -285,9 +449,11 @@ def flash_attention_bf16(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_fp32(q, k, v, *, causal: bool = True, window: int = 0,
                          lse=None):
-    """The scalar kernel; operands already checked by ``kernel_route``.
-    ``lse`` as :func:`flash_attention_bf16`'s."""
-    out = _launch("flash_attention", q, k, v, causal, window, _strides, lse)
+    """The 3xTF32 kernel, tiled by :func:`fp32_plan`; operands already
+    checked by ``kernel_route``. ``lse`` as :func:`flash_attention_bf16`'s."""
+    plan = _device_plan(q, k, False)
+    out = _launch("flash_attention", q, k, v, causal, window, _strides, lse,
+                  plan.rows, plan.step, _vec(q, k, v))
     flash_attention_fp32.launches += 1
     return out
 
@@ -403,29 +569,52 @@ def flash_attention_bwd_bf16(q, k, v, out, lse, dy, *, causal: bool = True,
 
 def flash_attention_bwd_fp32(q, k, v, out, lse, dy, *, causal: bool = True,
                              window: int = 0):
-    """The float32 backward kernel (``csrc/flash_attention_bwd.cu``, scalar
-    fp32): ``(dq, dk, dv)`` as :func:`flash_attention_bwd_bf16` gives them,
-    from the fp32 forward's ``out`` and ``lse``; every operand read through
-    its strides with a contiguous last dim (dy copied otherwise). Raises
-    for what the kernel does not take. Counts one launch."""
+    """The float32 backward kernel (``csrc/flash_attention_bwd.cu``, 3xTF32,
+    one device launch tiled by :func:`fp32_plan`): ``(dq, dk, dv)`` as
+    :func:`flash_attention_bwd_bf16` gives them, from the fp32 forward's
+    ``out`` and ``lse``; every operand read through its strides with a
+    contiguous last dim (dy copied otherwise). Raises for what the kernel
+    does not take. Counts one launch."""
     dy = _backward_operands(q, k, v, out, lse, dy, torch.float32)
     B, S, H, hd = q.shape
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    KV = k.shape[2]
+    plan = _device_plan(q, k, True)
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = counters = None
+    if plan.splits > 1:
+        part = torch.empty((2, plan.splits, B, S, KV, hd), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(q.device, stream, -(-S // plan.rows) * B * KV)
     lib, fn = _lib("flash_attention_bwd")
     _check(lib, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dy.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+        dy.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), B, S, H, KV, hd,
         *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         *_strides(dy), *_strides(dq), *_strides(dk), *_strides(dv),
-        hd ** -0.5, int(bool(causal)), kernel_window(window, S),
-        torch.cuda.current_stream(q.device).cuda_stream),
+        hd ** -0.5, int(bool(causal)), kernel_window(window, S), plan.rows,
+        plan.step, plan.split, plan.splits, _vec(q, k, v, out, dy), stream),
         "flash_attention_bwd")
     flash_attention_bwd_fp32.launches += 1
     return dq, dk, dv
+
+
+# the fp32 backward's GQA counters by (device, stream): zero between
+# calls (the kernel's last block of a key tile resets its own), so a call
+# launches nothing but the kernel
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream: int, n: int):
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[(device, stream)] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=device)
+    return buf
 
 
 flash_attention_bf16.launches = 0

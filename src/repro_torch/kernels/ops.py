@@ -13,8 +13,8 @@ closed forms (``rmsnorm_backward``, ``flash_attention_backward``) are the
 backward kernels' plain versions: the CPU's gradients. Each kernel wrapper
 counts its launches (``launch_counts``), on both branches: RMSNorm in all
 and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``), its backward
-(``rmsnorm_bwd``); attention per route (bf16 on tensor cores, fp32
-scalar), with ``flash_attention`` their sum, and each route's backward
+(``rmsnorm_bwd``); attention per route (bf16 on ``wgmma``, fp32 in
+3xTF32 on ``mma.sync``), with ``flash_attention`` their sum, and each route's backward
 (``flash_attention_bwd_bf16``, ``flash_attention_bwd_fp32``). K2 takes a
 causal sliding window (``window``, 0 = none) on every branch; a window
 without the causal mask raises.

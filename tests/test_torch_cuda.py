@@ -227,6 +227,33 @@ def test_flash_bf16_refuses_what_tma_cannot_read(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 112, 256])
+def test_flash_fp32_reads_rows_off_the_16_byte_grain(cuda_device, hd):
+    """fp32 q, k, v and dy whose head stride (hd + 2 floats) leaves rows
+    off the 16-byte grain: the fp32 route copies them 4 bytes at a time,
+    forward and backward, and agrees with the plain versions (2e-4)."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, dy = (torch.randn(2, 150, n, hd + 2, generator=g,
+                               device=cuda_device)[..., :hd]
+                   for n in (8, 2, 2, 8))
+    assert not tfa.cp_async16_ok(q.shape, q.stride(), q.data_ptr())
+    lse = tfa.new_lse(q)
+    out = tfa.flash_attention(q, k, v, causal=True, lse=lse)
+    got = tfa.flash_attention_bwd_fp32(q, k, v, out, lse, dy, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(out, q.contiguous(), k.contiguous(), v.contiguous(), True)
+    want = tfa.flash_attention_backward(q, k, v, dy, True)
+    assert _bwd_rel(got, want) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_tf32_mma_rate_is_within_the_tensor_cores(cuda_device):
+    """The TF32 mma.sync probe runs and reads a rate between a tenth of
+    an H100's 495 TFLOP/s of dense TF32 and that peak."""
+    assert 49.5 < tfa.tf32_mma_rate() <= 495
+
+
+@pytest.mark.cuda
 def test_flash_launch_counters_per_route(cuda_device):
     ops.reset_launch_counts()
     for dtype, n in ((torch.bfloat16, 3), (torch.float32, 2)):
@@ -622,8 +649,9 @@ def test_flash_backward_reads_strided_views(cuda_device):
 def test_flash_fp32_backward_kernel_matches_plain(cuda_device, hd, causal, G,
                                                   S):
     """K2's fp32 backward kernel against the closed form: dq, dk and dv
-    each within 2e-4 relative RMS (scalar fp32 throughout), one launch a
-    call; the fp32 forward's LSE within 1e-5 of the plain one's."""
+    each within 2e-4 relative RMS (3xTF32 products, ~2^-21 each), one
+    launch a call; the fp32 forward's LSE within 1e-5 of the plain
+    one's."""
     q, k, v = _qkv(cuda_device, 2, S, 2 * G, 2, hd, torch.float32)
     dy = torch.randn_like(q)
     lse = tfa.new_lse(q)

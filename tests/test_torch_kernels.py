@@ -539,15 +539,19 @@ def test_every_source_builds_from_the_package():
              for p in build.inputs(build.CSRC / f"{n}.cu")}
     assert names == {"flash_attention.cu", "flash_attention_sm90.cu",
                      "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-                     "rmsnorm.cu", "sm90_ptx.cuh"}
+                     "rmsnorm.cu", "sm90_ptx.cuh", "tf32x3.cuh"}
 
 
 def test_kernel_times_needs_a_card():
-    """``python -m repro_torch.launch.kernel_times`` times the card's K2
-    forward and refuses to run without one."""
+    """``python -m repro_torch.launch.kernel_times`` times the card's K2,
+    both routes, and refuses to run without one."""
     from repro_torch.launch import kernel_times
     assert all(hd in tfa.SUPPORTED_HEAD_DIMS and H % KV == 0
-               for _, _, H, KV, hd, _ in kernel_times.SHAPES)
+               for _, _, H, KV, hd, _ in kernel_times.SHAPES
+               + kernel_times.FP32_SHAPES)
+    assert all(hd in tfa.SUPPORTED_HEAD_DIMS and H % KV == 0
+               for _, _, H, KV, hd in kernel_times.BWD_SHAPES
+               + kernel_times.FP32_BWD_SHAPES)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
