@@ -166,13 +166,33 @@ skip_reason skips none) and the 512-rank mesh for gpt and yi-9b prefill:
 each combo's FLOPs, bytes (an unfused upper bound) and collective bytes a
 device, dominant roofline term, GiB a device, fits_hbm and trace seconds,
 with no kernel launched and no exception.
+Phase 11 (run after phase 4, whose in-process summaries it needs) runs
+the JAX repo's user-facing drivers, ported, through the functions their
+``main`` calls: the bug suite (repro_torch.verify_bug_suite: every bug
+detected, every task's stable summary phase 4's, no kernel launched),
+serve_decode with gemma3-12b at full width and depth in bf16 (B=4,
+prompt 12, 16 tokens, max_seq 64: finite logits, tokens of (4, 16),
+exactly expected_launches' K1 launches and no K2 in the driver's calls,
+its sequential prefill within SEQ_VS_PAR_REL_RMS of parallel prefill's;
+decode step ms, tokens/s, peak memory) and train_gpt_100m with its
+defaults (gpt 12 x 768, bf16, 300 steps of 8 x 256 in 2 microbatches,
+a checkpoint: the loss falls, and every step launches exactly K1 and K2
+forward and backward twice a layer and K1 twice more for the final
+norm; step ms, tokens/s, peak memory, first and last loss).
+
+    python -c "import chip_smoke as c; c.hang_leg_loop(20)"
+
+loops phase 5's hang leg alone (the runtime's lost-span check, one JSON
+line a run and the count of runs that lost a bystander's span).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record (K2 at hd 112, at whisper's encoder and at
 qwen2-vl's, gemma3-27b's and command-r's shapes carry the launches of
 their model's phase-6 path, K2 with a window those of its model's
 windowed path (gemma3-12b: phase 3's); the training shapes those of phase
-9's). Any failure raises and exits non-zero, and
+9's; K1 at serve_decode's (4, 3840) rows and each kernel at
+train_gpt_100m's (4, 256) microbatch, timed in phases 1 and 9, those of
+phase 11's drivers). Any failure raises and exits non-zero, and
 the script exits non-zero without a CUDA device. The backward kernels
 have entries of their own (ms the kernel's, plain_ms the closed form's,
 library_ms the PyTorch call's backward).
@@ -280,6 +300,7 @@ HEADROOM = 10e9               # bytes left for activations beside the weights
 SEQ_STEPS = 64                # sequential-prefill tokens (mamba2: S_PROMPT)
 N_FAMILY_DECODE = 8
 FAMILY_WIDTHS = (1024, 1536, 2048, 2560, 5376, 7168, 8192)
+GEMMA12_D = 3840              # gemma3-12b: K1 at serve_decode's 4 rows
 KIMI_ATTN = (1, S_LONG, 64, 8, 112)
 WHISPER_ENC_ATTN = (B_PROMPT, 1500, 16, 16, 64)
 WHISPER_DEC_ATTN = (B_PROMPT, S_PROMPT, 16, 16, 64)
@@ -602,7 +623,8 @@ def phase1(peaks):
                               ((B_PROMPT * S_PROMPT, D_MODEL), True, both),
                               ((S_LONG, D_MODEL), True, both)] + [
             ((rows, D), True, (torch.bfloat16,)) for D in FAMILY_WIDTHS
-            for rows in (B_PROMPT, S_LONG)]:
+            for rows in (B_PROMPT, S_LONG)] + [
+            ((B_PROMPT, GEMMA12_D), True, (torch.bfloat16,))]:
         for dt in dts:
             x = torch.randn(shape, generator=g, device="cuda").to(dt)
             s = (torch.randn(shape[-1:], generator=g, device="cuda")
@@ -1572,6 +1594,213 @@ def phase5_runtime(inproc, inproc_s, smi, device="cuda"):
     print(f"[runtime] {json.dumps(timings)}")
 
 
+def phase11_drivers(inproc, smi):
+    """The JAX repo's user-facing drivers, ported, on the card through the
+    functions their ``main`` calls: (a) the bug suite, every bug detected
+    and every task's stable summary (verdict, R_o, localization) phase
+    4's; (b) serve_decode with gemma3-12b at full width and depth in bf16
+    (B=4, prompt 12, 16 tokens, max_seq 64): finite logits, tokens of
+    (4, 16), exactly ``expected_launches``' K1 launches and no K2 in the
+    driver's calls, its sequential prefill's logits within
+    SEQ_VS_PAR_REL_RMS of parallel prefill's, decode step ms, tokens/s
+    and peak memory; (c) train_gpt_100m with its defaults (gpt 12 x 768,
+    bf16, 300 steps of 8 x 256, 2 microbatches, a checkpoint): the loss
+    falls, and every step launches exactly K1 and K2's forward and
+    backward kernels twice a layer (and the final norm twice); step ms,
+    tokens/s, peak memory, first and last loss."""
+    import inspect
+    import tempfile
+    from repro_torch import api
+    from repro_torch import serve_decode as sd, train_gpt_100m as tg
+    from repro_torch import verify_bug_suite as vbs
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import serve
+    out = dict(card=smi)
+    t_phase = time.perf_counter()
+
+    # (a) the bug suite
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = vbs.run_bug_suite("cuda")
+    out["bug_suite_s"] = time.perf_counter() - t
+    counts = ops.launch_counts()
+    lines = [line for line in map(vbs.status, res) if line is not None]
+    for line in lines:
+        print(f"[drivers] {line}")
+    check(res.ok and lines and not any("NOT DETECTED" in x for x in lines),
+          f"bug suite: {res.summary()}")
+    def phase4_id(r):
+        # phase 4 names a 2-axis case's degree per axis (tp_dp_2d@deg2x2)
+        for deg in api.get_strategy(r.case).degrees:
+            n = len(deg) if isinstance(deg, tuple) else 1
+            if api.axis_degrees(deg, n) == api.axis_degrees(r.degree, n):
+                return api.task_id(r.case, deg, r.bug)
+    differ = sorted(r.task_id() for r in res if json.dumps(
+        r.stable_summary(), sort_keys=True) != inproc.get(phase4_id(r)))
+    check(not differ, f"bug suite: tasks differ from phase 4's: {differ}")
+    check(not any(counts.values()), f"the bug suite launched {counts}")
+    out["bugs"] = len(lines)
+    print("[drivers] bug_suite " + json.dumps(dict(
+        bugs=len(lines), tasks=len(res), s=out["bug_suite_s"],
+        launches=counts)))
+
+    # (b) serve_decode at full width and depth
+    cfg = registry.load_config(sd.ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.dtype) == (48, 3840, "bfloat16"),
+          f"gemma3-12b config {cfg}")
+    B, S, gen, max_seq = sd.BATCH, sd.PROMPT, sd.GEN, sd.MAX_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    model = registry.init_params(cfg, 0, "cuda")
+    prompt = sd.make_prompt(cfg, B, S, "cuda")
+    ops.reset_launch_counts()
+    # --- the serve_decode path: launches from here to the read counted ---
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    served = sd.serve_decode(model, prompt, gen, max_seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    # ----------------------------------------------------------------------
+    want_k1, _ = expected_launches(cfg, 0, S, gen)
+    check(counts["rmsnorm"] == want_k1 and not counts["flash_attention"]
+          and not counts["rmsnorm_bwd"],
+          f"serve_decode launched {counts}, not {want_k1} RMSNorm and no "
+          f"attention kernel")
+    logits, toks = served["logits"], served["tokens"]
+    check(logits.shape == (B, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"serve_decode logits {tuple(logits.shape)} not finite or shaped")
+    check(tuple(toks.shape) == (B, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"tokens {tuple(toks.shape)}")
+    # decode alone, timed: 16 more steps from the driver's cache
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    serve.decode_tokens(model, served["cache"], toks[:, -1:], S + gen, gen)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    par = serve.prefill_logits(model, {"tokens": prompt}).float()
+    rel = ((logits.float() - par).norm() / par.norm()).item()
+    check(rel <= SEQ_VS_PAR_REL_RMS,
+          f"serve_decode: sequential prefill against parallel prefill, rel "
+          f"RMS {rel:.4g} > {SEQ_VS_PAR_REL_RMS}")
+    out["serve_decode"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, batch=B, prompt=S, gen=gen, max_seq=max_seq,
+        driver_s=wall, decode_step_ms=decode_s / gen * 1e3,
+        tokens_per_s=B * gen / decode_s, rel_rms_seq_vs_par=rel,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+        generated=toks[0].tolist())
+    print(f"[drivers] serve_decode {json.dumps(out['serve_decode'])}")
+    del model, served, logits, toks, par
+    torch.cuda.empty_cache()
+
+    # (c) train_gpt_100m with its defaults
+    cfg = registry.load_config("gpt")
+    n_mb = tg.TRAIN_CONFIG.microbatches
+    per_step = {"rmsnorm": n_mb * (2 * cfg.n_layers + 1),
+                "flash_attention_bf16": n_mb * cfg.n_layers,
+                "flash_attention_fp32": 0,
+                "rmsnorm_bwd": n_mb * (2 * cfg.n_layers + 1),
+                "flash_attention_bwd_bf16": n_mb * cfg.n_layers,
+                "flash_attention_bwd_fp32": 0}
+    launches = dict.fromkeys(per_step, 0)
+
+    def on_step(step, _metrics):
+        counts = ops.launch_counts()
+        check(all(counts[k] == n for k, n in per_step.items()),
+              f"train_gpt_100m step {step}: launches {counts}, a step "
+              f"makes {per_step}")
+        for k in per_step:
+            launches[k] += counts[k]
+        ops.reset_launch_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = registry.init_params(cfg, 0, "cuda")
+    ckpt = tempfile.mkdtemp(prefix="train_gpt_100m_")
+    ops.reset_launch_counts()
+    # --- the training path: each step's launches counted in on_step -------
+    trained = tg.train(model, ckpt=ckpt, on_step=on_step)
+    # ----------------------------------------------------------------------
+    steps = len(trained["losses"])
+    # the driver's defaults: batch and sequence of each step
+    defaults = inspect.signature(tg.train).parameters
+    batch, seq = defaults["batch"].default, defaults["seq"].default
+    check(trained["last"] < trained["first"]
+          and all(math.isfinite(x) for x in trained["losses"]),
+          f"train_gpt_100m: loss {trained['first']} -> {trained['last']}")
+    check(any(Path(ckpt).iterdir()), "train_gpt_100m wrote no checkpoint")
+    steady = sorted(trained["step_ms"][5:])[len(trained["step_ms"][5:]) // 2]
+    out["train_gpt_100m"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, n_params=registry.n_params(cfg), steps=steps,
+        batch=[batch, seq], microbatches=n_mb, first_loss=trained["first"],
+        last_loss=trained["last"], first_step_ms=trained["step_ms"][0],
+        median_step_ms=steady, tokens_per_s=batch * seq / steady * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+        per_step=per_step)
+    print(f"[drivers] train_gpt_100m {json.dumps(out['train_gpt_100m'])}")
+    del model, trained
+    torch.cuda.empty_cache()
+    out["phase11_s"] = time.perf_counter() - t_phase
+    print(f"[drivers] phase11_s {out['phase11_s']}")
+    return out
+
+
+def hang_leg_loop(n=20, device="cuda"):
+    """Phase 5's hang leg alone, ``n`` times: the same 10-case degree-2
+    order with pp_stage@deg2 last, ``hang:1`` on it, 2 workers, a 20 s
+    budget, traced. One ``[hang-loop]`` JSON line a run: the bystanders
+    whose worker ``task`` span is missing from the merged trace, with
+    their outcomes, the supervisor's ``run`` spans and the fault events,
+    and the bystanders whose stable summary differs from an in-process
+    run's. Returns the number of runs that lost a span or a summary.
+
+        python -c "import chip_smoke as c; c.hang_leg_loop(20)"
+    """
+    from repro_torch import api
+    from repro_torch.runtime import chaos
+    victim = "pp_stage@deg2"
+    order = [c for c in api.list_strategies()
+             if c not in ("tp_dp_2d", "pp_stage")] + ["pp_stage"]
+    want = _summaries(api.Suite(cases=order, degrees=(2,)).run(
+        workers=0, device=device))
+    bad = 0
+    for i in range(n):
+        os.environ[chaos.ENV_SPEC] = "hang:1"
+        os.environ[chaos.ENV_TARGET] = victim
+        try:
+            with api.Suite(cases=order, degrees=(2,)) as s:
+                hit, tracer = _traced(lambda: s.run(
+                    workers=2, timeout_s=20.0, cache=False, device=device))
+        finally:
+            os.environ.pop(chaos.ENV_SPEC)
+            os.environ.pop(chaos.ENV_TARGET)
+        by = {r.task_id(): r for r in hit}
+        v = by.pop(victim)
+        ran = {e["args"]["key"] for e in _worker_spans(tracer)}
+        missing = sorted(set(by) - ran)
+        got = _summaries(api.SuiteResult(list(by.values()), 0.0, 2))
+        differ = sorted(k for k in got if got[k] != want.get(k))
+        runs = [(e["args"]["key"], e["args"]["status"],
+                 round(e["dur"] / 1e6, 3)) for e in tracer.events
+                if e.get("name") == "run" and e.get("ph") == "X"
+                and e["args"].get("key") in missing]
+        faults = [(e["name"], e["args"].get("key"),
+                   e["args"].get("liveness")) for e in tracer.events
+                  if e.get("cat") == "fault"]
+        bad += bool(missing or differ or victim in ran
+                    or v.verdict != "timeout")
+        print("[hang-loop] " + json.dumps(dict(
+            run=i, wall_s=hit.wall_s, victim=v.verdict, missing=missing,
+            outcomes={k: [by[k].verdict, by[k].error, by[k].runtime]
+                      for k in missing}, run_spans=runs, differ=differ,
+            faults=faults)), flush=True)
+    print(f"[hang-loop] {bad} of {n} runs lost a bystander's span or "
+          f"summary", flush=True)
+    return bad
+
+
 def _fires(reports):
     return sum(sum(((r.get("stats") or {}).get("lemma_fires") or {})
                    .values()) for r in reports.values())
@@ -2181,11 +2410,14 @@ def train_cli():
 # backward) and yi-9b's (8 layers, 1 x 4096)
 TRAIN_NORM_SHAPES = (("gpt_train", GPT_BATCH * GPT_SEQ, 768, torch.bfloat16),
                      ("train_reduced", 4 * 128, 128, torch.float32),
-                     ("yi9b_train", YI_SEQ, D_MODEL, torch.bfloat16))
+                     ("yi9b_train", YI_SEQ, D_MODEL, torch.bfloat16),
+                     ("gpt_100m", 4 * 256, 768, torch.bfloat16))
 TRAIN_ATTN_SHAPES = (("gpt_train", (GPT_BATCH, GPT_SEQ, 12, 12, 64),
                       torch.bfloat16),
                      ("train_reduced", (4, 128, 4, 2, 32), torch.float32),
-                     ("yi9b_train", (1, YI_SEQ, 32, 4, 128), torch.bfloat16))
+                     ("yi9b_train", (1, YI_SEQ, 32, 4, 128), torch.bfloat16),
+                     # train_gpt_100m's microbatch: 4 of its 8 x 256
+                     ("gpt_100m", (4, 256, 12, 12, 64), torch.bfloat16))
 
 
 # The fp32 backward's device kernels, by the profiler in a process of its
@@ -2601,6 +2833,7 @@ def main(argv=()):
     families = phase6_families()
     train = phase9_train(peaks, smi)
     inproc, inproc_s = phase4_verify()
+    drivers = phase11_drivers(inproc, smi)
     phase5_runtime(inproc, inproc_s, smi)
     phase7_checks(smi)
     phase8_serve(smi)
@@ -2701,9 +2934,13 @@ def main(argv=()):
     # (bf16), launch.train's reduced default (fp32)
     recs = train["records"]
     launched = {"gpt_train": train["gpt"]["launches"],
-                "train_reduced": train["cli"], "yi9b_train": train["yi"]["launches"]}
+                "train_reduced": train["cli"], "yi9b_train": train["yi"]["launches"],
+                "gpt_100m": drivers["train_gpt_100m"]["launches"]}
     for name, key, counter in (
             ("rmsnorm@gpt_train", ("rmsnorm", "gpt_train"), "rmsnorm"),
+            ("rmsnorm@gpt_100m", ("rmsnorm", "gpt_100m"), "rmsnorm"),
+            ("flash_attention_bf16@gpt_100m", ("flash", "gpt_100m"),
+             "flash_attention_bf16"),
             ("rmsnorm@train_reduced", ("rmsnorm", "train_reduced"), "rmsnorm"),
             ("flash_attention_bf16@gpt_train", ("flash", "gpt_train"),
              "flash_attention_bf16"),
@@ -2731,6 +2968,10 @@ def main(argv=()):
              "rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
             ("rmsnorm_bwd@yi9b_train", ("rmsnorm", "yi9b_train"),
              "rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
+            ("rmsnorm_bwd@gpt_100m", ("rmsnorm", "gpt_100m"),
+             "rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:21"),
+            ("flash_attention_bwd_bf16@gpt_100m", ("flash", "gpt_100m"),
+             "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src),
             ("flash_attention_bwd_bf16@gpt_train", ("flash", "gpt_train"),
              "flash_attention_bwd_bf16", f"{BF16_BWD_LIB}.cu", fa_src),
             ("flash_attention_bwd_bf16@yi9b_train", ("flash", "yi9b_train"),
@@ -2748,6 +2989,19 @@ def main(argv=()):
             bound_by=rec["backward_bound_by"],
             library_ms=rec["library_backward_ms"], shape=rec["shape"],
             dtype=rec["dtype"], **fma_bound(rec, "backward_"), card=smi))
+    # K1 on serve_decode's path (phase 11): gemma3-12b's decode rows
+    rec = next(r for r in records if r["kernel"] == "rmsnorm"
+               and r["shape"] == [B_PROMPT, GEMMA12_D])
+    kernels.append(dict(
+        name=f"rmsnorm@serve_decode_{B_PROMPT}x{GEMMA12_D}", route="cuda",
+        source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:21",
+        launches=drivers["serve_decode"]["launches"]["rmsnorm"],
+        plan=rec["plan"], path="serve_decode",
+        **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "bound_share",
+                                "host_us", "library_host_us", "shape")},
+        card=smi))
     # each kernel on phase 10's sharded path (DTensor parameters on a
     # (1, 1) mesh), at the 4 x 256 prefill's shapes
     for name, src, rec, launches in (

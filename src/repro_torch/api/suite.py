@@ -60,6 +60,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -355,6 +356,46 @@ def outcome_report(case: str, degree: Degree, bug: Optional[str],
 # CLI
 # ---------------------------------------------------------------------------
 
+# The JAX package's checked-in CI golden (the clean degree-2 matrix's
+# stable summary): ``--check`` diffs the port against it; the port's
+# regenerator writes elsewhere and never over it.
+REFERENCE_GOLDEN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "tests", "golden",
+    "suite_degree2.json")
+GOLDEN_DEGREES = (2,)
+
+
+def update_golden(path: str, workers: int = 4, timeout_s: float = 120.0,
+                  device=None) -> int:
+    """Deterministically regenerate the clean degree-2 matrix's golden
+    into ``path`` (the counterpart of the JAX package's ``update_golden``).
+
+    Certificates are byte-identical for any worker count, so the output
+    depends only on the registered strategies.  A matrix that misses its
+    own expectations is refused — a golden must never encode a failing
+    suite — and so is the reference's golden, :data:`REFERENCE_GOLDEN`.
+    """
+    if os.path.realpath(path) == os.path.realpath(REFERENCE_GOLDEN):
+        print(f"[suite] REFUSING to write golden: {path} is the JAX "
+              f"package's golden, which --check holds the port to",
+              file=sys.stderr)
+        return 2
+    with Suite(degrees=GOLDEN_DEGREES) as suite:
+        result = suite.run(workers=workers, timeout_s=timeout_s,
+                           device=device)
+    if not result.ok:
+        print(f"[suite] REFUSING to write golden: tasks missed their "
+              f"expectation: {result.summary()['not_ok']}", file=sys.stderr)
+        return 1
+    with open(path, "w") as f:
+        json.dump(result.stable_summary(), f, indent=2, sort_keys=True)
+        f.write("\n")
+    print(f"[suite] regenerated golden {path} ({len(result)} tasks)",
+          file=sys.stderr)
+    return 0
+
+
 def add_cache_flags(ap: argparse.ArgumentParser) -> None:
     """The shared --cache/--no-cache pair (also used by launch/verify)."""
     g = ap.add_mutually_exclusive_group()
@@ -424,7 +465,27 @@ def main(argv=None) -> int:
                          "(R_o up to renaming) and fail on mismatch")
     ap.add_argument("--write-golden", default=None, metavar="PATH",
                     help="write the stable summary as a golden to PATH")
+    ap.add_argument("--update-golden", default=None, metavar="PATH",
+                    help="regenerate the clean degree-2 matrix's golden "
+                         "into PATH and exit (refuses a failing matrix, "
+                         "the JAX package's tests/golden/suite_degree2.json"
+                         " and the matrix flags)")
     args = ap.parse_args(argv)
+
+    if args.update_golden is not None:
+        clash = [flag for flag, v in (
+            ("--cases", args.cases), ("--degrees", args.degrees),
+            ("--bugs", args.bugs or None), ("--json", args.json),
+            ("--markdown", args.markdown), ("--check", args.check),
+            ("--cache", args.cache), ("--no-cache", args.no_cache or None),
+            ("--write-golden", args.write_golden)) if v is not None]
+        if clash:
+            ap.error(f"--update-golden regenerates the clean degree-2 "
+                     f"matrix and cannot be combined with "
+                     f"{', '.join(clash)} (use --write-golden PATH for a "
+                     f"custom matrix)")
+        return update_golden(args.update_golden, workers=args.workers,
+                             timeout_s=args.timeout, device=args.device)
 
     with Suite(cases=args.cases, degrees=args.degrees,
                include_bugs=args.bugs) as suite:

@@ -32,15 +32,16 @@ import sys
 EXPLAIN = {"explain": True}
 
 
-class _Checks:
-    """The checks of one run: each printed as it is made, the failed ones
-    kept."""
+class Checks:
+    """The checks of one smoke run: each printed under ``tag`` as it is
+    made, the failed ones kept (also the cache and chaos smokes')."""
 
-    def __init__(self):
+    def __init__(self, tag: str = "explain-smoke"):
+        self.tag = tag
         self.failures = []
 
     def __call__(self, ok: bool, what: str) -> None:
-        print(f"[explain-smoke] {what}: {'ok' if ok else 'FAIL'}")
+        print(f"[{self.tag}] {what}: {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             self.failures.append(what)
 
@@ -51,7 +52,7 @@ def _deterministic_stats(stats: dict) -> dict:
                                   "lemma_fires") if k in stats}
 
 
-def leg_clean_replay(check: _Checks, device: str) -> None:
+def leg_clean_replay(check: Checks, device: str) -> None:
     """Leg 1: clean certificates explain, and every chain replays."""
     from ..api import verify
     from ..core.explain import check_explanation, explanation_steps
@@ -96,7 +97,7 @@ def leg_clean_replay(check: _Checks, device: str) -> None:
               f"serve obligation {key}: replay")
 
 
-def leg_bug_frontier(check: _Checks, device: str) -> None:
+def leg_bug_frontier(check: Checks, device: str) -> None:
     """Leg 2: every smoke bug yields a failure-frontier narrative naming
     the stuck op and the lemma frontier."""
     from ..gradcheck import check_train
@@ -138,7 +139,7 @@ def leg_bug_frontier(check: _Checks, device: str) -> None:
               f"bug {name}: narrative mentions stuck op + lemma frontier")
 
 
-def leg_off_identical(check: _Checks, device: str) -> None:
+def leg_off_identical(check: Checks, device: str) -> None:
     """Leg 3: explain-off certificates are byte-identical and carry no
     explanation key."""
     from ..api import verify
@@ -164,7 +165,7 @@ def run(device=None) -> list:
     for); returns the names of the checks that failed."""
     from ..models.registry import resolve_device
     device = str(resolve_device(device))
-    check = _Checks()
+    check = Checks()
     leg_clean_replay(check, device)
     leg_bug_frontier(check, device)
     leg_off_identical(check, device)

@@ -8,10 +8,15 @@ back one :class:`TaskOutcome` per key.  The pool guarantees:
 * **Per-task hard deadlines** — each task's budget starts ticking when the
   task *starts on a worker* (tracked by heartbeats), not when it is
   submitted, so one slow task can never starve the budget of the tasks
-  queued behind it.  A task past its deadline is reported as ``timeout``
-  with its measured elapsed time and heartbeat liveness ("worker alive —
-  task over budget" vs "no heartbeat — worker hung"); the wedged worker
-  is killed with its pool and the survivors resume on a replacement pool.
+  queued behind it: the supervisor hands the executor one task per
+  worker and keeps the rest queued itself (a task the executor takes
+  beyond that waits in its call queue already marked running).  A task
+  past its deadline is reported as ``timeout`` with its measured elapsed
+  time and heartbeat liveness ("worker alive — task over budget" vs "no
+  heartbeat — worker hung"); the wedged worker is killed with its pool
+  and the survivors resume on a replacement pool.  A worker's start-up
+  is not a task's: a task handed to a worker that has not started it
+  within :data:`STARTUP_S` is reported as a worker wedged in start-up.
 * **Crash containment with exact blame** — a worker death
   (``BrokenProcessPool``: segfault, hard exit, OOM-kill) re-runs every
   unfinished task, but tasks that were *running* at crash time are
@@ -37,8 +42,13 @@ keeps its warmed workers across :meth:`SupervisedPool.execute` calls.
 Heartbeats ride a ``multiprocessing.Manager`` dict: the worker shim
 records the task start and then beats from a daemon thread, which lets
 the supervisor distinguish a *dead* worker (beats stopped) from a *hung*
-one (beats continue, task over budget).  If the manager cannot start,
-supervision degrades to submit-time budgets rather than failing.
+one (beats continue, task over budget).  Each dispatch carries a ticket
+that its beats repeat, so a beat left by an earlier dispatch of the same
+key (a worker of a discarded pool) is never taken for this one's.  If the
+manager cannot start, supervision degrades to budgets from the
+executor's pick-up rather than failing.  A traced worker's events travel
+back with the task's result (or its exception), never through the
+manager: a task that finished always brings its ``task`` span.
 
 Fault injection for all of the above lives in
 :mod:`repro_torch.runtime.chaos`.
@@ -65,6 +75,15 @@ DEFAULT_MAX_RETRIES = 2
 DEFAULT_BACKOFF_S = 0.1
 DEFAULT_HEARTBEAT_S = 0.25
 _POLL_S = 0.05
+# a worker handed a task must start it (its start beat) within this, or it
+# is wedged in start-up: spawn, imports and, on cuda, a CUDA context take
+# seconds (7-9 s on an H100 machine), none of it the task's budget
+STARTUP_S = 120.0
+# how long a broken pool's workers get to finish exiting before their exit
+# codes are read (a worker with a CUDA context closes its pipe to the
+# parent before the driver has torn the context down and the exit is
+# reaped)
+EXIT_SETTLE_S = 5.0
 START_METHOD = "spawn"
 
 # set in each worker by the pool initializer: the run's device, and why the
@@ -143,36 +162,44 @@ def _warm_worker(device: Optional[str], created_at: float) -> None:
     Importing ``repro_torch.api`` populates the strategy registry (the
     cases a spawned worker knows) and pays the torch import up front.  On
     ``cuda`` one tiny op and a synchronize make the worker's CUDA context
-    before its first task; on ``cpu`` nothing touches a device.  A failure
-    is kept, not raised: the worker then answers each of its tasks with
-    an error naming it, rather than breaking the pool or tracing on
-    another device.  Where the start-up went is kept for the ``task``
-    span: ``spawn_s`` from the executor's creation (``created_at``, the
-    parent's clock) to this call (interpreter, the caller's ``__main__``
-    re-imported, unpickling), ``import_s`` and ``device_s``.
+    before its first task; on ``cpu`` nothing touches a device.  Then one
+    tiny ``make_fx`` trace on the device: ``make_fx``'s first use costs
+    seconds (~2 s on a CPU), which would otherwise fall in the worker's
+    first task and its budget.  A failure is kept, not raised: the worker
+    then answers each of its tasks with an error naming it, rather than
+    breaking the pool or tracing on another device.  Where the start-up
+    went is kept for the ``task`` span: ``spawn_s`` from the executor's
+    creation (``created_at``, the parent's clock) to this call
+    (interpreter, the caller's ``__main__`` re-imported, unpickling),
+    ``import_s``, ``device_s`` and ``trace_s``.
     """
     global _WORKER_DEVICE, _WORKER_INIT_ERROR, _WORKER_STARTUP
     _WORKER_DEVICE = device
     t0 = time.time()
-    t1 = t0
+    t1 = t2 = t0
     try:
         import torch
+        from torch.fx.experimental.proxy_tensor import make_fx
 
         from .. import api  # noqa: F401 — populate the registry
         from ..kernels import ops  # noqa: F401 — launch counters
-        t1 = time.time()
+        t1 = t2 = time.time()
         if device is not None and torch.device(device).type != "cpu":
             # one tiny op, read back: makes the CUDA context and waits
             # for the card (on a device that cannot run it, raises here)
             (torch.zeros(1, device=device) + 1).sum().item()
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize()
+        t2 = time.time()
+        make_fx(lambda a: (a @ a).tanh().sum(0))(
+            torch.ones(4, 4, device=device))
     except Exception as e:  # noqa: BLE001 — reported per task by the shim
         _WORKER_INIT_ERROR = (f"worker cannot reach {device}: "
                               f"{type(e).__name__}: {e}")
     _WORKER_STARTUP = {"spawn_s": round(t0 - created_at, 6),
                        "import_s": round(t1 - t0, 6),
-                       "device_s": round(time.time() - t1, 6)}
+                       "device_s": round(t2 - t1, 6),
+                       "trace_s": round(time.time() - t2, 6)}
 
 
 def terminate_pool(pool: ProcessPoolExecutor) -> None:
@@ -201,30 +228,38 @@ def _describe_exit(code: Optional[int]) -> str:
     return f"exit code {code}"
 
 
-def _worker_shim(fn: Callable, args: tuple, key: str, attempt: int,
-                 hb, heartbeat_s: float, sink=None) -> Any:
-    """Runs in the pool worker: mark worker context for chaos, record the
-    start beat, keep beating from a daemon thread, then run the task.
+class _TaskRaised(Exception):
+    """A task's own exception, with the worker's trace batch beside it
+    (``args``: the exception, the events)."""
 
-    When the parent is tracing it passes a Manager list as ``sink``: the
-    shim installs a fresh worker :class:`~repro_torch.obs.trace.Tracer`,
-    wraps the task in a ``task`` span (key / attempt / worker pid / the
-    worker's device, and at its end the worker's kernel launch counts and
-    whether it made a CUDA context), and ships the event batch back for
+
+def _worker_shim(fn: Callable, args: tuple, key: str, ticket: int,
+                 attempt: int, hb, heartbeat_s: float,
+                 trace: bool = False) -> Tuple[Any, Optional[list]]:
+    """Runs in the pool worker: mark worker context for chaos, record the
+    start beat (``(ticket, start, beat)``), keep beating from a daemon
+    thread, then run the task; returns ``(value, events)``.
+
+    When the parent is tracing (``trace``) the shim installs a fresh
+    worker :class:`~repro_torch.obs.trace.Tracer`, wraps the task in a
+    ``task`` span (key / attempt / worker pid / the worker's device, and
+    at its end the worker's kernel launch counts and whether it made a
+    CUDA context), and returns the event batch with the value (a task's
+    own exception comes back as :class:`_TaskRaised`, carrying it) for
     the supervisor to absorb — each worker keeps its own pid so the merged
     trace has one track per worker process.  A worker killed mid-task
-    simply never ships; fault visibility comes from the supervisor-side
+    returns nothing; fault visibility comes from the supervisor-side
     events.
     """
     if _WORKER_INIT_ERROR is not None:
         raise RuntimeError(_WORKER_INIT_ERROR)
     chaos.enter_worker()
-    tracer = obs_trace.Tracer("worker") if sink is not None else None
+    tracer = obs_trace.Tracer("worker") if trace else None
     obs_trace.install(tracer)
     start = time.time()
     if hb is not None:
         try:
-            hb[key] = (start, start)
+            hb[key] = (ticket, start, start)
         except Exception:  # noqa: BLE001 — manager gone: beat-less mode
             hb = None
     stop = threading.Event()
@@ -232,28 +267,47 @@ def _worker_shim(fn: Callable, args: tuple, key: str, attempt: int,
         def _beat(hb=hb):
             while not stop.wait(heartbeat_s):
                 try:
-                    hb[key] = (start, time.time())
+                    hb[key] = (ticket, start, time.time())
                 except Exception:  # noqa: BLE001 — manager gone mid-task
                     return
         threading.Thread(target=_beat, daemon=True).start()
     try:
         chaos.maybe_fault(key, attempt)  # may segfault/exit/hang here
         if tracer is None:
-            return fn(*args)
-        with tracer.span("task", cat="pool", key=key, attempt=attempt,
-                         worker_pid=tracer.pid,
-                         device=_WORKER_DEVICE) as sp:
-            value = fn(*args)
-            sp.attrs.update(_worker_device_facts())
-            return value
+            return fn(*args), None
+        try:
+            with tracer.span("task", cat="pool", key=key, attempt=attempt,
+                             worker_pid=tracer.pid,
+                             device=_WORKER_DEVICE) as sp:
+                value = fn(*args)
+                sp.attrs.update(_worker_device_facts())
+        except Exception as e:  # noqa: BLE001 — re-raised by the parent
+            raise _TaskRaised(e, tracer.events) from None
+        return value, tracer.events
     finally:
         stop.set()
         if tracer is not None:
             obs_trace.install(None)
-            try:
-                sink.append(tracer.events)
-            except Exception:  # noqa: BLE001 — manager gone: drop the batch
-                pass
+
+
+def _receive(fut) -> Any:
+    """A finished task's value from its future; the worker's trace batch
+    that travels with it (or with the task's own exception, re-raised
+    here) goes into the parent's tracer."""
+    try:
+        value, events = fut.result()
+    except _TaskRaised as r:
+        exc, events = r.args
+        _absorb(events)
+        raise exc from None
+    _absorb(events)
+    return value
+
+
+def _absorb(events: Optional[list]) -> None:
+    tracer = obs_trace.current()
+    if tracer is not None and events:
+        tracer.absorb(list(events))
 
 
 def _worker_device_facts() -> dict:
@@ -375,12 +429,15 @@ class SupervisedPool:
         self.max_retries = max_retries
         self.backoff_s = backoff_s
         self.heartbeat_s = heartbeat_s
+        self.startup_s = STARTUP_S
         self._initializer = _warm_worker if warm else None
         self._ctx = multiprocessing.get_context(START_METHOD)
         self._executor: Optional[ProcessPoolExecutor] = None
         self._manager = None
-        self._hb = None                  # manager dict: key -> (start, beat)
-        self._sink = None                # manager list: worker trace batches
+        self._hb = None          # manager dict: key -> (ticket, start, beat)
+        self._tickets: Dict[str, int] = {}   # key -> its dispatch's ticket
+        self._next_ticket = 0
+        self._trace = False              # ship worker events (execute())
 
     # -- lifecycle ----------------------------------------------------------
     def __enter__(self) -> "SupervisedPool":
@@ -404,7 +461,7 @@ class SupervisedPool:
             try:
                 self._manager = _start_manager(self._ctx)
                 self._hb = self._manager.dict()
-            except Exception:  # noqa: BLE001 — degrade to submit-time budgets
+            except Exception:  # noqa: BLE001 — degrade to pick-up-time budgets
                 self._manager, self._hb = None, None
         return self._hb
 
@@ -432,25 +489,24 @@ class SupervisedPool:
 
     def _exit_cause(self) -> str:
         """Best-effort exit causes of the (broken) pool's dead workers."""
-        if self._executor is None:
-            return "worker process died"
-        time.sleep(0.05)                 # let exit codes settle
-        causes = [
-            _describe_exit(p.exitcode)
-            for p in getattr(self._executor, "_processes", {}).values()
-            if p.exitcode not in (None, 0)]
-        return "worker " + (", ".join(sorted(set(causes)))
-                            if causes else "process died")
+        return (self._exit_cause_of(self._executor)
+                if self._executor is not None else None) \
+            or "worker process died"
 
     # -- heartbeat bookkeeping ----------------------------------------------
     def _beat_of(self, key: str) -> Optional[Tuple[float, float]]:
+        """``(start, last beat)`` of the key's current dispatch, if its
+        worker has started it."""
         if self._hb is None:
             return None
         try:
-            return self._hb.get(key)
+            beat = self._hb.get(key)
         except Exception:  # noqa: BLE001 — manager died mid-run
             self._hb = None
             return None
+        if beat is None or beat[0] != self._tickets.get(key):
+            return None
+        return beat[1:]
 
     def _clear_beat(self, key: str) -> None:
         if self._hb is not None:
@@ -478,8 +534,7 @@ class SupervisedPool:
                 todo.append(t)
         if not todo:
             return outcomes
-        tracer = obs_trace.current()
-        self._open_sink(tracer)
+        self._trace = obs_trace.current() is not None
         try:
             self._supervise(todo, outcomes, cache, cacheable)
         except PoolUnavailable as e:
@@ -489,34 +544,17 @@ class SupervisedPool:
             outcomes.update(execute_inline(
                 remaining, cache, cacheable,
                 degraded_reason=f"degraded to in-process: {e}"))
-        finally:
-            self._drain_sink(tracer)
         return outcomes
 
-    # -- worker trace merging ------------------------------------------------
-    def _open_sink(self, tracer) -> None:
-        """A fresh Manager list per execute() for worker event batches."""
-        self._sink = None
-        if tracer is None:
-            return
-        self._ensure_heartbeats()
-        if self._manager is not None:
-            try:
-                self._sink = self._manager.list()
-            except Exception:  # noqa: BLE001 — trace merging is best-effort
-                self._sink = None
-
-    def _drain_sink(self, tracer) -> None:
-        """Absorb every worker batch shipped during this execute()."""
-        sink, self._sink = self._sink, None
-        if tracer is None or sink is None:
-            return
-        try:
-            batches = list(sink)
-        except Exception:  # noqa: BLE001 — manager died: events are gone
-            return
-        for batch in batches:
-            tracer.absorb(list(batch))
+    def _submit(self, pool: ProcessPoolExecutor, task: RuntimeTask,
+                attempt: int):
+        """Hand ``task`` to ``pool`` under a fresh ticket."""
+        self._clear_beat(task.key)
+        self._next_ticket += 1
+        self._tickets[task.key] = self._next_ticket
+        return pool.submit(_worker_shim, task.fn, task.args, task.key,
+                           self._next_ticket, attempt, self._hb,
+                           self.heartbeat_s, self._trace)
 
     def _obs_task_done(self, key: str, submit_t: Dict[str, float],
                        running_t: Optional[Dict[str, float]], status: str,
@@ -575,36 +613,41 @@ class SupervisedPool:
         """Happy path: fan pending tasks out on the shared pool.
 
         Completed/errored/timed-out tasks are popped from ``pending`` as
-        their outcomes land.  Returns ``(suspect keys, crash cause)`` on a
+        their outcomes land.  The executor holds one task per worker; the
+        rest wait here, in ``pending``'s order, and are handed over as
+        workers free up.  Returns ``(suspect keys, crash cause)`` on a
         pool break — the tasks that were *running* when the pool died and
         therefore need quarantined re-execution; queued tasks stay in
         ``pending`` for the caller to fan out again.
         """
         pool = self._ensure_executor()
-        submit_t: Dict[str, float] = {}
+        now = time.time()
+        submit_t: Dict[str, float] = {key: now for key in pending}
         running_t: Dict[str, float] = {}
         futs: Dict[Any, str] = {}
-        for key, task in pending.items():
-            self._clear_beat(key)
-            submit_t[key] = time.time()
-            futs[pool.submit(_worker_shim, task.fn, task.args, key, 1,
-                             self._hb, self.heartbeat_s,
-                             self._sink)] = key
-        while futs:
-            done, _ = wait(set(futs), timeout=_POLL_S,
+        queued = list(pending)
+        while futs or queued:
+            broken = False
+            while queued and len(futs) < self.workers:
+                try:
+                    fut = self._submit(pool, pending[queued[0]], 1)
+                except BrokenExecutor:   # a worker died since the last wait
+                    broken = True
+                    break
+                futs[fut] = queued.pop(0)
+            done, _ = wait(set(futs), timeout=0 if broken else _POLL_S,
                            return_when=FIRST_COMPLETED)
             now = time.time()
             for f, key in futs.items():
                 if key not in running_t and f.running():
                     running_t[key] = now
-            broken = False
             for f in done:
                 key = futs.pop(f)
                 task = pending.get(key)
                 if task is None:
                     continue
                 try:
-                    value = f.result()
+                    value = _receive(f)
                 except BrokenExecutor:
                     broken = True
                     continue
@@ -629,9 +672,9 @@ class SupervisedPool:
             if broken:
                 cause = self._exit_cause()
                 self._discard_executor()
-                suspects = [k for k in pending
-                            if self._beat_of(k) is not None
-                            or self._hb is None]
+                suspects = [k for k in pending if k not in queued
+                            and (self._beat_of(k) is not None
+                                 or self._hb is None)]
                 obs_trace.event("pool.broken", cat="fault", cause=cause,
                                 suspects=sorted(suspects))
                 REGISTRY.counter("pool.broken").inc()
@@ -671,12 +714,9 @@ class SupervisedPool:
                 REGISTRY.counter("pool.retries").inc()
                 time.sleep(self.backoff_s * 2 ** (attempts - 2))
             pool = self._make_executor(1)
-            self._clear_beat(task.key)
             submit_t = {task.key: time.time()}
             running_t: Dict[str, float] = {}
-            fut = pool.submit(_worker_shim, task.fn, task.args, task.key,
-                              attempts, self._hb, self.heartbeat_s,
-                              self._sink)
+            fut = self._submit(pool, task, attempts)
             try:
                 while True:
                     done, _ = wait({fut}, timeout=_POLL_S)
@@ -689,7 +729,7 @@ class SupervisedPool:
                             task, submit_t, running_t, attempts=attempts)
                         return
                 try:
-                    value = fut.result()
+                    value = _receive(fut)
                 except BrokenExecutor:
                     cause = self._exit_cause_of(pool) or cause
                     obs_trace.event("worker.crash", cat="fault",
@@ -727,9 +767,14 @@ class SupervisedPool:
 
     @staticmethod
     def _exit_cause_of(pool: ProcessPoolExecutor) -> Optional[str]:
-        time.sleep(0.05)
-        causes = [_describe_exit(p.exitcode)
-                  for p in getattr(pool, "_processes", {}).values()
+        """The exit causes of a broken pool's workers, each given up to
+        :data:`EXIT_SETTLE_S` (all together) to finish exiting; None when
+        none exited with a cause."""
+        procs = list((getattr(pool, "_processes", None) or {}).values())
+        deadline = time.time() + EXIT_SETTLE_S
+        for p in procs:
+            p.join(max(deadline - time.time(), 0.0))
+        causes = [_describe_exit(p.exitcode) for p in procs
                   if p.exitcode not in (None, 0)]
         return f"worker {', '.join(sorted(set(causes)))}" if causes \
             else None
@@ -741,12 +786,12 @@ class SupervisedPool:
         beat = self._beat_of(key)
         if beat is not None:
             return beat[0]
-        if self._hb is None:             # no heartbeats: submit-time budget
-            return submit_t.get(key)
+        if self._hb is None:             # no heartbeats: pick-up-time budget
+            return (running_t or {}).get(key, submit_t.get(key))
         if running_t is not None and key in running_t:
-            # picked up by the executor but no start beat ever arrived —
-            # a worker wedged during startup must still burn its budget,
-            # or execute() would wait forever
+            # picked up by the executor but no start beat yet: the
+            # worker's start-up, on its own deadline (``_over_budget``),
+            # or a worker wedged in it would hang execute() forever
             return running_t[key]
         return None                      # queued — budget not ticking yet
 
@@ -755,10 +800,16 @@ class SupervisedPool:
         start = self._start_of(key, submit_t, running_t)
         return max(time.time() - start, 0.0) if start is not None else 0.0
 
+    def _starting(self, key: str) -> bool:
+        """Handed to a worker that has not started it (heartbeats on)."""
+        return self._hb is not None and self._beat_of(key) is None
+
     def _over_budget(self, task: RuntimeTask, submit_t: Dict[str, float],
                      running_t: Optional[Dict[str, float]] = None) -> bool:
         start = self._start_of(task.key, submit_t, running_t)
-        return start is not None and time.time() - start > task.budget_s
+        limit = self.startup_s if self._starting(task.key) \
+            else task.budget_s
+        return start is not None and time.time() - start > limit
 
     def _timeout_outcome(self, task: RuntimeTask,
                          submit_t: Dict[str, float],
@@ -776,14 +827,16 @@ class SupervisedPool:
             liveness = ("no heartbeat since start — worker wedged "
                         "during startup")
         else:
-            liveness = "no heartbeat channel — submit-time budget"
+            liveness = "no heartbeat channel — budget from pick-up"
         obs_trace.event("task.timeout", cat="fault", key=task.key,
                         elapsed=round(elapsed, 3), liveness=liveness)
         REGISTRY.counter("pool.timeouts").inc()
+        limit = (f"the worker start-up deadline of {self.startup_s:g}s"
+                 if beat is None and self._hb is not None
+                 else f"per-task budget of {task.budget_s:g}s")
         return TaskOutcome(
             task.key, "timeout", attempts=attempts,
-            error=f"exceeded per-task budget of {task.budget_s:g}s "
-                  f"(ran {elapsed:.1f}s; {liveness})",
+            error=f"exceeded {limit} (ran {elapsed:.1f}s; {liveness})",
             wall_s=elapsed,
             queue_s=self._obs_task_done(task.key, submit_t, running_t,
                                         "timeout", elapsed, attempts))

@@ -336,10 +336,11 @@ class TestPool:
 
     def test_wedged_worker_startup_times_out(self):
         """A worker that wedges before its first heartbeat burns the
-        task's budget from executor pick-up instead of hanging execute()
-        forever."""
+        pool's start-up deadline from executor pick-up instead of hanging
+        execute() forever (the task's budget starts at its start beat)."""
         with SupervisedPool(2, **BARE) as pool:
             pool._initializer = tasks.wedge_forever
+            pool.startup_s = 3.0
             out = pool.execute([_task("stuck", budget_s=3.0)])
         assert out["stuck"].status == "timeout"
         assert "wedged during startup" in out["stuck"].error

@@ -62,3 +62,11 @@ if __name__ == "__main__":
                     workers=2, warm=False)
     sys.exit(0 if all(o.ok for o in out.values()) else 1)
 """
+
+
+class UnreachableBeats(dict):
+    """A heartbeat channel that no worker can write to (a Manager the
+    worker cannot reach): every write raises, the parent reads nothing."""
+
+    def __setitem__(self, key, value):
+        raise ConnectionRefusedError("heartbeat manager unreachable")
