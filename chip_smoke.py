@@ -179,6 +179,18 @@ defaults (gpt 12 x 768, bf16, 300 steps of 8 x 256 in 2 microbatches,
 a checkpoint: the loss falls, and every step launches exactly K1 and K2
 forward and backward twice a layer and K1 twice more for the final
 norm; step ms, tokens/s, peak memory, first and last loss).
+Phase 12 (run after phase 4, whose in-process results it reuses) is the
+audit of the JAX package's tests on the card: (a) repro_torch.launch.
+verify.run_case for each of the 11 registered cases at degree 2 on cuda,
+whose pretty(R_o) and per-lemma fires must equal phase 4's; (b) the
+lemma soundness properties of the JAX engine tests (block matmul, a
+dus_concat chain as the engine extracts it, the n-ary add normal form,
+reduce_reshape and scalar_factor's rewrite), each side evaluated with
+eval_term on CUDA float32 tensors for AUDIT_SEEDS fixed seeds, against
+the same terms on the CPU and against each other within AUDIT_REL of
+the output's scale; (c) tp_dp_2d's explanation (lemma chain) on the card
+equal to the CPU's, with the same explain_steps. It launches no kernel
+and prints one line: its wall and counts.
 
     python -c "import chip_smoke as c; c.hang_leg_loop(20)"
 
@@ -218,6 +230,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1252,7 +1265,9 @@ def check_path_shapes(seen):
 
 def phase4_verify():
     """The verifier's main path on the card: the whole case matrix, the
-    degree-2 golden and the numeric replay of each clean certificate."""
+    degree-2 golden and the numeric replay of each clean certificate.
+    Returns each task's stable summary, the summed verify wall and each
+    task's per-lemma fires."""
     from repro_torch import api
     from repro_torch.api.replay import max_rel_excess, replay
     from repro_torch.api.report import same_up_to_renaming
@@ -1264,7 +1279,7 @@ def phase4_verify():
     tasks = [(case, deg, bug) for case in api.list_strategies()
              for deg in api.get_strategy(case).degrees
              for bug in (None,) + api.get_strategy(case).bug_names()]
-    summaries = {}
+    summaries, fires = {}, {}
     ops.reset_launch_counts()
     # --- the verify path: launches from here to the read are counted ---
     t_suite, verify_s = time.perf_counter(), 0.0
@@ -1276,6 +1291,7 @@ def phase4_verify():
         summaries[r.task_id()] = json.dumps(r.stable_summary(),
                                             sort_keys=True)
         stats = r.stats or {}
+        fires[r.task_id()] = stats.get("lemma_fires")
         token = api.degree_token(deg)
         jax = bench["fam_scaling"].get(f"{case}_deg{token}") \
             or bench["fig5"].get(f"{case}_deg{token}") \
@@ -1318,7 +1334,116 @@ def phase4_verify():
           f"the verify path launched port kernels: {counts}")
     print(f"[verify] {json.dumps(dict(tasks=len(tasks), suite_s=suite_s,
                                       verify_s=verify_s, launches=counts))}")
-    return summaries, verify_s
+    return summaries, verify_s, fires
+
+
+AUDIT_SEEDS = tuple(range(20))
+AUDIT_REL = 1e-5
+
+
+def _audit_props(T, rng):
+    """(name, lhs term, rhs term, env) of each lemma property for one
+    draw: the rhs is the rewrite the lemma installs (for dus_concat, what
+    the engine extracts after saturating)."""
+    from repro_torch.core.egraph import EGraph
+    from repro_torch.core.lemmas import all_lemmas
+    f32 = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    m, k, n = (int(v) for v in rng.integers(2, 9, 3))
+    a, b = f32(m, 2 * k), f32(2 * k, n)
+    ta, tb = T.tensor("a", a.shape), T.tensor("b", b.shape)
+    out = [("matmul_block", T.matmul(ta, tb), T.add(
+        T.matmul(T.slice_(ta, (0, 0), (m, k)), T.slice_(tb, (0, 0), (k, n))),
+        T.matmul(T.slice_(ta, (0, k), (m, 2 * k)),
+                 T.slice_(tb, (k, 0), (2 * k, n)))), {"a": a, "b": b})]
+    rows = int(rng.integers(1, 4))
+    us = [T.tensor(f"u{i}@d", (rows, n)) for i in range(4)]
+    chain = T.broadcast(T.lit(0.0), (4 * rows, n), ())
+    for pos in rng.permutation(4):
+        chain = T.dus(chain, us[pos], (int(pos) * rows, 0))
+    eg = EGraph()
+    c = eg.add_term(chain)
+    eg.rebuild()
+    eg.saturate(all_lemmas())
+    ce = eg.extract_clean(c, lambda name: name.endswith("@d"))
+    check(ce is not None and ce.op == "concat",
+          f"dus_concat did not rewrite a complete chain: {ce}")
+    out.append(("dus_concat", chain, ce,
+                {f"u{i}@d": f32(rows, n) for i in range(4)}))
+    xs = [T.tensor(f"x{i}", (m, n)) for i in range(4)]
+    out.append(("nary_add", T.add(T.add(xs[0], xs[1]), T.add(xs[2], xs[3])),
+                T.add_n(xs[::-1]), {f"x{i}": f32(m, n) for i in range(4)}))
+    x = T.tensor("x", (m, n))
+    out.append(("reduce_reshape",
+                T.reduce_("reduce_sum", T.reshape(x, (m * n,)), (0,)),
+                T.reduce_("reduce_sum", x, (0, 1)), {"x": f32(m, n)}))
+    p, q, c4 = T.tensor("p", (m, n)), T.tensor("q", (m, n)), T.lit(4.0)
+    out.append(("scalar_factor", T.ew2("div", T.add(p, q), c4),
+                T.add(T.ew2("div", p, c4), T.ew2("div", q, c4)),
+                {"p": f32(m, n), "q": f32(m, n)}))
+    return out
+
+
+def phase12_audit(inproc, smi, fires):
+    """The audit of the JAX package's tests, on the card: run_case's R_o
+    and fires against phase 4's, the lemma properties' eval_term on CUDA
+    float32 against the CPU's, and tp_dp_2d's lemma chain on the card
+    against the CPU's."""
+    from repro_torch import api
+    from repro_torch.core import terms as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch.verify import run_case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # (a) run_case against phase 4, case by case
+    for case in api.list_strategies():
+        cert = run_case(case, degree=2, quiet=True, device="cuda")
+        key = f"{case}@deg2" if f"{case}@deg2" in inproc else \
+            f"{case}@deg2x2"
+        want = json.loads(inproc[key])
+        got = {k: T.pretty(v, 999) for k, v in sorted(cert.r_o.items())}
+        check(got == want["r_o"], f"run_case {case}: R_o {got} is not phase "
+              f"4's {want['r_o']}")
+        check(cert.stats["lemma_fires"] == fires[key],
+              f"run_case {case}: fires {cert.stats['lemma_fires']} are not "
+              f"phase 4's {fires[key]}")
+    cases_s = time.perf_counter() - t0
+    # (b) the lemma properties on CUDA float32 against the CPU
+    worst, checks = 0.0, 0
+    for seed in AUDIT_SEEDS:
+        rng = np.random.default_rng(seed)
+        for name, lhs, rhs, env in _audit_props(T, rng):
+            cuda_env = {k: torch.from_numpy(v).cuda() for k, v in env.items()}
+            cpu_env = {k: torch.from_numpy(v) for k, v in env.items()}
+            got = [T.eval_term(t, cuda_env) for t in (lhs, rhs)]
+            want = [T.eval_term(t, cpu_env) for t in (lhs, rhs)]
+            check(all(g.device.type == "cuda" and g.dtype == w.dtype
+                      for g, w in zip(got, want)),
+                  f"{name}: not on the card in the CPU's dtype")
+            scale = max(1.0, want[0].abs().max().item())
+            for g, w in ((got[0], want[0]), (got[1], want[1]),
+                         (got[1], got[0])):
+                err = (g.cpu().double() - w.cpu().double()).abs().max().item()
+                worst = max(worst, err / scale)
+                checks += 1
+                check(err <= AUDIT_REL * scale, f"{name} seed {seed}: "
+                      f"{err} beyond {AUDIT_REL} of {scale}")
+    props_s = time.perf_counter() - t0 - cases_s
+    # (c) the tp_dp_2d explanation on the card and on the CPU
+    expl = {dev: api.verify("tp_dp_2d", engine_opts={"explain": True},
+                            device=dev).explanation
+            for dev in ("cuda", "cpu")}
+    check(json.dumps(expl["cuda"], sort_keys=True)
+          == json.dumps(expl["cpu"], sort_keys=True),
+          "tp_dp_2d: the explanation on the card is not the CPU's")
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"phase 12 launched kernels: {counts}")
+    print(f"[audit] {json.dumps(dict(
+        wall_s=time.perf_counter() - t0, cases=len(api.list_strategies()),
+        cases_s=cases_s, seeds=len(AUDIT_SEEDS), props=5, checks=checks,
+        props_s=props_s, worst_rel=worst,
+        explain_steps=expl['cuda']['total_steps'], launches=counts,
+        card=smi))}")
 
 
 def _summaries(result):
@@ -2832,7 +2957,8 @@ def main(argv=()):
     gemma12 = phase3_windowed(smi)
     families = phase6_families()
     train = phase9_train(peaks, smi)
-    inproc, inproc_s = phase4_verify()
+    inproc, inproc_s, fires = phase4_verify()
+    phase12_audit(inproc, smi, fires)
     drivers = phase11_drivers(inproc, smi)
     phase5_runtime(inproc, inproc_s, smi)
     phase7_checks(smi)

@@ -17,8 +17,9 @@ Input shapes come from ``example_args`` (tensors, used only for their
 shape/dtype) or ``avals`` (``TensorSpec`` or ``(shape, dtype)`` per
 input); input names default to the sequential function's parameter names.
 Both functions are traced on ``device`` (``cuda`` unless ``"cpu"`` is
-asked for) through the strict :mod:`repro_torch.core.from_fx` frontend, so
-an op the term language cannot model raises
+asked for) through the :mod:`repro_torch.core.from_fx` frontend, strict
+unless ``strict=False`` is passed, so an op the term language cannot model
+raises
 :class:`~repro_torch.core.UnsupportedPrimitive` with the offending op and
 the user's ``file:line`` — surfaced as an ``error`` verdict by
 ``verify_functions`` and as an exception by the raising flavour
@@ -84,12 +85,13 @@ def run_functions(fn_seq: Callable, fn_dist: Callable, mesh,
                   in_specs: Sequence, avals: Optional[Sequence] = None,
                   input_names: Optional[Sequence[str]] = None, *,
                   example_args: Optional[Sequence] = None,
+                  strict: bool = True,
                   engine_opts: Optional[dict] = None,
                   device=None) -> Certificate:
     """Raising flavour of :func:`verify_functions` -> live ``Certificate``.
 
-    Captures both functions on ``device`` through the strict generic
-    frontend, expands the SPMD side per rank, derives the input
+    Captures both functions on ``device`` through the generic frontend
+    (strict unless ``strict=False``), expands the SPMD side per rank, derives the input
     relation from ``in_specs``, and runs relation inference.  Raises
     ``RefinementError`` when the implementation does not refine the
     sequential function and ``UnsupportedPrimitive`` when a function
@@ -102,10 +104,12 @@ def run_functions(fn_seq: Callable, fn_dist: Callable, mesh,
         engine_opts = _engine_opts(engine_opts)
     with engine_opts as eo:
         gs = capture_function(spec.seq_fn, list(spec.avals),
-                              list(spec.input_names), device=dev)
+                              list(spec.input_names), strict=strict,
+                              device=dev)
         cap = capture_spmd_function(spec.dist_fn, spec.mesh_axes,
                                     list(spec.in_specs), list(spec.avals),
-                                    list(spec.input_names), device=dev)
+                                    list(spec.input_names), strict=strict,
+                                    device=dev)
         gd, r_i = expand_spmd(cap)
         return check_refinement(gs, gd, r_i, max_nodes=eo.max_nodes,
                                 explain=eo.explain)
@@ -115,7 +119,7 @@ def verify_functions(fn_seq: Callable, fn_dist: Callable, mesh,
                      in_specs: Sequence, avals: Optional[Sequence] = None,
                      input_names: Optional[Sequence[str]] = None, *,
                      example_args: Optional[Sequence] = None,
-                     name: Optional[str] = None,
+                     name: Optional[str] = None, strict: bool = True,
                      engine_opts: Optional[dict] = None,
                      device=None) -> Report:
     """Verify that ``fn_dist`` on ``mesh`` refines ``fn_seq`` -> ``Report``.
@@ -137,7 +141,8 @@ def verify_functions(fn_seq: Callable, fn_dist: Callable, mesh,
     try:
         cert = run_functions(spec.seq_fn, spec.dist_fn, spec.mesh_axes,
                              spec.in_specs, spec.avals, spec.input_names,
-                             engine_opts=engine_opts, device=dev)
+                             strict=strict, engine_opts=engine_opts,
+                             device=dev)
     except RefinementError as e:
         return Report(
             case=spec.name, degree=spec.degree, bug=None,

@@ -8,7 +8,7 @@ Public API:
                                            shard_map, collectives)
     strict_capture, UnsupportedPrimitive — strict capture frontend
     capture_function,                    — trace arbitrary function pairs
-    capture_spmd_function,                 (always strict)
+    capture_spmd_function,                 (strict unless strict=False)
     normalize_mesh
     check_refinement, GraphGuard         — iterative relation inference
     Certificate, RefinementError         — results

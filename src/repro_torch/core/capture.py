@@ -26,13 +26,18 @@ Aten ops map to the term vocabulary of ``terms.py`` as the JAX capture maps
 jaxpr primitives, so that the same lemmas fire: ``mm``/``bmm`` become
 ``matmul``/``bmm``, ``sigmoid`` becomes ``logistic``, ``select`` becomes a
 slice and a reshape, ``unsqueeze`` a ``broadcast`` (as ``x[None]`` is in
-jax), ``constant_pad_nd`` a concat with broadcast blocks, and scalar
-operands are lifted to an explicit ``broadcast`` so elementwise lemmas stay
-shape-uniform. 0-d constants (Python scalars, ``scalar_tensor``, 0-d
+jax), ``stack`` a ``broadcast`` def per input and their concat (as
+``jnp.stack`` is), ``constant_pad_nd`` a concat with broadcast blocks, and
+scalar operands are lifted to an explicit ``broadcast`` so elementwise
+lemmas stay shape-uniform. 0-d constants (Python scalars, ``scalar_tensor``, 0-d
 closed-over tensors) are literals, as jaxpr literals are. Graph constants
 stay host numpy arrays, so relation inference matches them exactly
-whatever the device. An aten op outside the table raises
-``CaptureError``.
+whatever the device. An aten op outside the table becomes an
+uninterpreted ``opaque:<aten op>`` term, as an unknown primitive does in
+the JAX capture (the user lemma extension point, see
+``lemmas.register_lemma``); its tensor operands are the term's args and its
+other arguments its attrs, so two calls that differ only in them stay
+apart. Under ``from_fx.strict_capture`` the op raises instead.
 
 Lemma fires follow the def structure, so the graph keeps the jaxpr's:
 products ``make_fx`` decomposed are recomposed before lowering (see "Dot
@@ -108,9 +113,9 @@ class CaptureError(RuntimeError):
 
 # Strict-mode hook stack (installed by ``from_fx.strict_capture``): each
 # entry is called as ``hook(node, reason)`` right before the capture raises
-# ``CaptureError`` for a node it cannot lower, so the strict frontend can
-# raise a structured ``UnsupportedPrimitive`` naming the node and the
-# user's source location.
+# ``CaptureError`` for a node it cannot lower, or keeps an op outside the
+# table as an opaque term, so the strict frontend can raise a structured
+# ``UnsupportedPrimitive`` naming the node and the user's source location.
 _NODE_HOOKS: list = []
 
 
@@ -277,6 +282,37 @@ def _flat(x) -> list:
     return [x]
 
 
+# arguments that place a result rather than define it: left out of an
+# opaque term's attrs, so its certificate does not depend on the device
+_PLACEMENT_KWARGS = frozenset({"device", "layout", "pin_memory"})
+
+
+def _opaque(node, read):
+    """``opaque:<aten op>`` terms for a node outside the table: its tensor
+    operands are the args, its other arguments (as ``repr``) the attrs, one
+    term per tensor output, ``#k``-tagged when there are several."""
+    def operand(a) -> bool:
+        return any(isinstance(x, torch.fx.Node) for x in _flat(a))
+
+    kwargs = sorted((k, v) for k, v in node.kwargs.items()
+                    if k not in _PLACEMENT_KWARGS)
+    given = list(node.args) + [v for _, v in kwargs]
+    args = tuple(read(x) for a in given for x in _flat(a)
+                 if isinstance(x, torch.fx.Node))
+    params = tuple(repr(a) for a in node.args if not operand(a)) + tuple(
+        f"{k}={v!r}" for k, v in kwargs if not operand(v))
+    val = node.meta["val"]
+    vals = list(val) if isinstance(val, (list, tuple)) else [val]
+    if not all(isinstance(v, torch.Tensor) for v in vals):
+        raise CaptureError(f"aten op `{op_name(node)}` at "
+                           f"{source_location(node)} has a non-tensor result")
+    terms = [T.opaque(op_name(node) + (f"#{k}" if len(vals) > 1 else ""),
+                      args, tuple(v.shape), _dt(v.dtype),
+                      (("params", params),) if params else ())
+             for k, v in enumerate(vals)]
+    return terms if isinstance(val, (list, tuple)) else terms[0]
+
+
 def _fx_to_graph(gm, names, tag, const_prefix: str = "const") -> Graph:
     g = Graph([], [], [], {}, {}, {})
     env: dict = {}
@@ -332,11 +368,9 @@ def _fx_to_graph(gm, names, tag, const_prefix: str = "const") -> Graph:
                 raise CaptureError(f"{e} (at {source_location(node)})") \
                     from None
             if outs is None:
-                reason = "no lowering to the term vocabulary"
-                _on_unsupported(node, reason)
-                raise CaptureError(
-                    f"aten op `{op_name(node)}` at {source_location(node)} "
-                    f"has {reason}")
+                # uninterpreted: an opaque op (user lemma extension point)
+                _on_unsupported(node, "no lowering to the term vocabulary")
+                outs = _opaque(node, read)
             if isinstance(outs, list):
                 env[node] = [emit(t) for t in outs]
             else:
@@ -542,10 +576,10 @@ SUPPORTED_PRIMITIVES = frozenset(
     | {f"aten.{n}" for n in (
         "_to_copy", "where", "clamp", "mm", "bmm", "addmm", "view",
         "reshape", "_unsafe_view", "squeeze", "unsqueeze", "expand",
-        "permute", "t", "transpose", "slice", "select", "cat", "split",
-        "split_with_sizes", "constant_pad_nd", "mean", "cumsum", "argmax",
-        "bitwise_and", "bitwise_or", "full", "full_like", "scalar_tensor",
-        "arange", "embedding", "rsub")}
+        "permute", "t", "transpose", "slice", "select", "cat", "stack",
+        "split", "split_with_sizes", "constant_pad_nd", "mean", "cumsum",
+        "argmax", "bitwise_and", "bitwise_or", "full", "full_like",
+        "scalar_tensor", "arange", "embedding", "rsub")}
     | _SPMD)
 
 
@@ -767,6 +801,12 @@ def _lower(node, read, emit):
         xs = [read(t) for t in a[0]]
         dim = a[1] if len(a) > 1 else kw.get("dim", 0)
         return T.concat(xs, _dim(dim, len(xs[0].shape)))
+    if tgt is aten.stack.default:               # jnp.stack: expand_dims
+        xs = [read(t) for t in a[0]]            # (a def each), then concat
+        d = _dim(a[1] if len(a) > 1 else kw.get("dim", 0), len(shape))
+        unit = tuple(1 if i == d else n for i, n in enumerate(shape))
+        bdims = tuple(i for i in range(len(shape)) if i != d)
+        return T.concat([emit(T.broadcast(x, unit, bdims)) for x in xs], d)
     if tgt in (aten.split.Tensor, aten.split_with_sizes.default):
         x = read(a[0])
         dim = _dim(a[2] if len(a) > 2 else kw.get("dim", 0), len(x.shape))

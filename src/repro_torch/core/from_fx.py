@@ -1,22 +1,28 @@
 """Strict capture frontend for the torch graphs (counterpart of the JAX
 package's ``from_jaxpr.py``).
 
-The capture raises ``CaptureError`` for an aten op outside its table. Under
-:func:`strict_capture` it raises :class:`UnsupportedPrimitive` instead,
-naming the op and the **source location** of the user code that emitted it
+The capture is *lenient*: an aten op outside its table becomes an
+uninterpreted ``opaque:<aten op>`` term (the user lemma extension point),
+and an op it cannot lower as configured raises ``CaptureError``. For
+user-written code that silence is a trap, since no built-in lemma reasons
+through an opaque op, so the frontend here is *strict* by default: under
+:func:`strict_capture` both raise :class:`UnsupportedPrimitive`, naming the
+op and the **source location** of the user code that emitted it
 (``file:line (function)``, from the node's ``meta["stack_trace"]``, which
 the capture stamps while it traces), e.g.::
 
     UnsupportedPrimitive: primitive `aten.cumprod` at my_model.py:42
     (block) has no term-language lowering: no lowering to the term
-    vocabulary
+    vocabulary — pass strict=False to capture it as an uninterpreted
+    opaque op (see repro_torch.core.register_lemma)
 
 ``SUPPORTED_PRIMITIVES`` is the table: the aten ops, and the SPMD shim's
 ops, that have a lowering.
 
 :func:`capture_function` and :func:`capture_spmd_function` trace arbitrary
 user functions (the ``verify_functions`` API and the ``--fn`` CLI flag),
-always strictly. Their inputs give only shapes and dtypes; capture is
+strictly unless ``strict=False`` is passed (then pair it with
+``repro_torch.core.register_lemma`` to teach the engine the opaque op). Their inputs give only shapes and dtypes; capture is
 ``make_fx`` in real mode, so the tracing tensors are made on the resolved
 device from a seeded ``torch.Generator`` (``capture.py``'s, the same as
 for the registered cases).
@@ -53,6 +59,8 @@ class UnsupportedPrimitive(CaptureError):
                f"term-language lowering")
         if reason:
             msg += f": {reason}"
+        msg += (" — pass strict=False to capture it as an uninterpreted "
+                "opaque op (see repro_torch.core.register_lemma)")
         super().__init__(msg)
 
 
@@ -108,10 +116,10 @@ def normalize_mesh(mesh) -> dict:
 
 def capture_function(fn: Callable, avals: Sequence,
                      names: Optional[Sequence[str]] = None, *,
-                     device=None) -> Graph:
-    """Trace ``fn`` with ``make_fx`` and lower it to a :class:`Graph`,
-    strictly: an op outside the term vocabulary raises
-    :class:`UnsupportedPrimitive`.
+                     strict: bool = True, device=None) -> Graph:
+    """Trace ``fn`` with ``make_fx`` and lower it to a :class:`Graph`:
+    ``strict=True`` (the default) raises :class:`UnsupportedPrimitive` for
+    an op outside the term vocabulary instead of emitting an opaque term.
 
     The generic flavour of ``capture()``: ``avals`` are ``(shape, dtype)``
     pairs (``TensorSpec``), ``names`` default to the function's own
@@ -121,16 +129,17 @@ def capture_function(fn: Callable, avals: Sequence,
     dev = resolve_device(device)
     if names is None:
         names = default_input_names(fn, len(avals))
-    with strict_capture():
+    with strict_capture() if strict else contextlib.nullcontext():
         return _capture(fn, list(avals), list(names), device=dev)
 
 
 def capture_spmd_function(fn: Callable, mesh, in_specs: Sequence,
                           avals: Sequence,
                           names: Optional[Sequence[str]] = None, *,
+                          strict: bool = True,
                           device=None) -> SpmdCapture:
-    """Trace a per-rank SPMD ``fn`` strictly on per-shard tensors of the
-    global ``avals``.
+    """Trace a per-rank SPMD ``fn`` on per-shard tensors of the global
+    ``avals`` (strict by default, as :func:`capture_function`).
 
     The generic flavour of ``capture_spmd()``: ``mesh`` is anything
     :func:`normalize_mesh` takes, ``names`` default to the function's
@@ -142,6 +151,6 @@ def capture_spmd_function(fn: Callable, mesh, in_specs: Sequence,
     dev = resolve_device(device)
     if names is None:
         names = default_input_names(fn, len(avals))
-    with strict_capture():
+    with strict_capture() if strict else contextlib.nullcontext():
         return _capture_spmd(fn, mesh_axes, list(in_specs), list(avals),
                              list(names), device=dev)

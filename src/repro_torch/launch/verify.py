@@ -82,15 +82,37 @@ import os
 import sys
 
 from ..api import (build_spec, degree_token, get_strategy, list_bugs,
-                   list_strategies, parse_degree, task_id)
+                   list_strategies, parse_degree, run_spec, task_id)
 from ..api.registry import list_model_tasks, list_serve_tasks, \
     list_train_tasks
 from ..api.suite import add_cache_flags, cache_from_args
+from ..device import resolve_device
+from ..dist.strategies import STRATEGY_CASES as CASES  # legacy view re-export
 
 # the --json envelope: {"schema_version", "kind", "timing", "report"}
 # (+ opt-in "metrics"/"explanation" keys — only when --metrics/--explain
 # are passed, so default envelopes keep their pinned four-key shape)
 JSON_SCHEMA_VERSION = 2
+
+
+def run_case(case: str, bug=None, degree: int = 2, max_nodes=400_000,
+             quiet=False, device=None):
+    """Verify one registered case on ``device`` (``cuda`` unless ``"cpu"``
+    is asked for) and return the live ``Certificate``; a refinement
+    failure raises ``RefinementError``. Unless ``quiet``, prints the op
+    counts, the R_o certificate and the engine's time and size."""
+    dev = resolve_device(device)
+    spec = build_spec(case, degree=degree, bug=bug, device=dev)
+    cert = run_spec(spec, engine_opts={"max_nodes": max_nodes}, device=dev)
+    if not quiet:
+        print(f"[verify] {case} degree={degree} bug={bug}: "
+              f"G_s ops={cert.stats['gs_ops']} G_d ops={cert.stats['gd_ops']}")
+        print("R_o certificate:")
+        for k, v in cert.r_o.items():
+            print(f"  {k} = {v}")
+        print(f"  ({cert.stats['time_s']*1e3:.1f} ms, "
+              f"{cert.stats['egraph_nodes']} e-nodes)")
+    return cert
 
 
 def _print_registry():
@@ -367,11 +389,11 @@ _FN_TASK_KEYS = ("fn_seq", "fn_dist", "mesh", "in_specs")
 def _fn_task_kwargs(task) -> dict:
     """Check a ``--fn`` task dict and return it as ``verify_functions``
     keywords: the four required keys, exactly one of ``avals`` and
-    ``example_args``, and an optional ``name``."""
+    ``example_args``, and an optional ``name`` and ``strict``."""
     if not isinstance(task, dict):
         raise ValueError(f"--fn callable must return a dict, got "
                          f"{type(task).__name__}")
-    allowed = {*_FN_TASK_KEYS, "avals", "example_args", "name"}
+    allowed = {*_FN_TASK_KEYS, "avals", "example_args", "name", "strict"}
     unknown = sorted(set(task) - allowed)
     if unknown:
         raise ValueError(f"unknown task keys {unknown} "
@@ -423,7 +445,6 @@ def _case_report(args, cache) -> dict:
     process unless ``--timeout`` or ``--workers`` asks for a worker."""
     from ..api.suite import (_BUILTIN, _run_task, outcome_report,
                              registering_module)
-    from ..models.registry import resolve_device
     from ..runtime import (RuntimeTask, SupervisedPool, execute_inline,
                            strategy_cache_key)
     device = str(resolve_device(args.device))
@@ -469,7 +490,7 @@ def main(argv=None):
                     help="verify an arbitrary user function pair via the "
                          "generic fx frontend: CALLABLE() returns the task "
                          "(a dict with fn_seq/fn_dist/mesh/in_specs, avals "
-                         "or example_args, and optionally name)")
+                         "or example_args, and optionally name and strict)")
     ap.add_argument("--model", default=None,
                     help="whole-model verification: a model id like `gpt` "
                          "(see --list)")

@@ -31,6 +31,7 @@ from repro_torch.core import (CaptureError, UnsupportedPrimitive, capture,
                               spmd, strict_capture)
 from repro_torch.core.explain import check_explanation, replay_env
 from repro_torch.core.terms import eval_term
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = json.load(open(os.path.join(ROOT, "tests/golden/suite_degree2.json")))
@@ -195,6 +196,10 @@ def _unsupported(x):
     return torch.cumprod(x, 0)
 
 
+def _cropped(x):
+    return torch.nn.functional.pad(x, (-1, 0))
+
+
 def test_unsupported_op_names_the_users_line():
     line = inspect.getsourcelines(_unsupported)[1] + 1
     with pytest.raises(UnsupportedPrimitive) as exc:
@@ -204,8 +209,14 @@ def test_unsupported_op_names_the_users_line():
     assert exc.value.primitive == "aten.cumprod"
     assert exc.value.source.startswith(f"{os.path.abspath(__file__)}:{line}")
     assert f"test_torch_capture.py:{line} (_unsupported)" in str(exc.value)
-    with pytest.raises(CaptureError, match="aten.cumprod"):
-        capture(_unsupported, [((4,), torch.float32)], ["x"], device="cpu")
+    # the default capture is lenient: the op is kept as an opaque term, and
+    # an op it lowers only in part still raises, naming the user's line
+    g = capture(_unsupported, [((4,), torch.float32)], ["x"], device="cpu")
+    assert [t.op for _, t in g.defs] == ["opaque:aten.cumprod"]
+    with pytest.raises(CaptureError) as exc:
+        capture(_cropped, [((4,), torch.float32)], ["x"], device="cpu")
+    line = inspect.getsourcelines(_cropped)[1] + 1
+    assert f"test_torch_capture.py:{line} (_cropped)" in str(exc.value)
 
 
 def test_strided_slice_is_refused():

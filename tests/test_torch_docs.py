@@ -10,6 +10,7 @@ import pytest
 
 from repro_torch.core.lemmas import LEMMAS, all_lemmas
 from repro_torch.launch import check_cli_docs, check_docstrings
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,7 +48,8 @@ def test_lemma_sources_match_the_catalog():
     for lemma in LEMMAS:
         heading = re.search(rf"^### `{lemma.name}`([^\n]*)", doc,
                             flags=re.M).group(1)
-        assert f"source: {lemma.source}" in heading, lemma.name
+        assert "ops:" in heading and f"source: {lemma.source}" in heading, \
+            lemma.name
 
 
 def test_cli_help_block_in_sync(capsys):
@@ -106,3 +108,52 @@ def test_port_trace_additions_are_documented():
     from repro_torch.kernels import ops
     for counter in ops.launch_counts():
         assert f"`{counter}`" in ref, counter
+
+
+# ---------------------------------------------------------------------------
+# README.md's "Port architecture": every subpackage, live links (the twin
+# of test_docs.py's ARCHITECTURE.md gates, which stay the reference's)
+# ---------------------------------------------------------------------------
+
+def _port_architecture():
+    doc = _read("README.md")
+    start = doc.index("### Port architecture")
+    return doc[start:doc.index("\n### ", start + 1)]
+
+
+def _subpackages():
+    base = os.path.join(ROOT, "src", "repro_torch")
+    return sorted(d for d in os.listdir(base)
+                  if os.path.isdir(os.path.join(base, d))
+                  and not d.startswith(("_", ".")))
+
+
+def test_port_architecture_covers_every_subpackage():
+    doc = _port_architecture()
+    subs = _subpackages()
+    assert "core" in subs and "csrc" in subs
+    for d in subs:
+        assert f"](src/repro_torch/{d}/)" in doc, d
+
+
+def test_port_architecture_links_resolve():
+    targets = set(re.findall(r"\]\(([^)#]+)\)", _port_architecture()))
+    assert targets
+    for target in targets:
+        assert os.path.exists(os.path.join(ROOT, target)), target
+
+
+def test_key_spans_are_documented_and_emitted():
+    """The spans docs/OBSERVABILITY.md names are the ones the port emits:
+    each is documented there and named in the port's source."""
+    doc = _read("docs", "OBSERVABILITY.md")
+    src = ""
+    for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "src",
+                                                      "repro_torch")):
+        src += "".join(_read(dirpath, fn) for fn in files
+                       if fn.endswith(".py"))
+    for name in ("capture", "infer", "saturate", "extract", "task",
+                 "queue", "run", "saturate.batch", "cache.probe",
+                 "task.retry", "task.timeout", "pool.degraded"):
+        assert f"`{name}`" in doc, name
+        assert f'"{name}"' in src, name

@@ -44,6 +44,7 @@ from repro_torch.api import Report
 from repro_torch.api import suite as suite_mod
 from repro_torch.launch import ci
 from repro_torch.models import convert, registry
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 SERVE_REL = 2e-4
 LOSS_REL, GNORM_REL = 1e-5, 1e-4

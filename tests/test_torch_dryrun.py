@@ -25,6 +25,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import registry as treg
 from repro_torch.models.config import InputShape
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = treg.ARCH_IDS + ["gpt"]

@@ -30,6 +30,7 @@ from repro_torch.core import terms as PT
 from repro_torch.core.convert import (graph_from_obj, relation_from_obj,
                                       term_from_obj)
 from repro_torch.core.explain import check_explanation
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = json.load(open(os.path.join(ROOT, "BENCH_verify.json")))

@@ -33,6 +33,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.train import serve as tserve
 
 from test_torch_families_common import B, FAMILY_ARCHS, S, Pair, f32, rel_rms
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 
 @pytest.fixture(scope="module", params=sorted(set(FAMILY_ARCHS.values())))

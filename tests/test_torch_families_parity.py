@@ -21,6 +21,7 @@ from repro_torch.models import registry as treg
 from repro_torch.train import serve as tserve
 
 from test_torch_families_common import B, FAMILY_ARCHS, N_DECODE, S, TOL, Pair, f32
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 
 @pytest.fixture(scope="module", params=list(FAMILY_ARCHS.values()))

@@ -25,6 +25,7 @@ from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rmsnorm as trn
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 TOL = 2e-5
 
@@ -388,3 +389,21 @@ def test_fp32_wrappers_refuse_cpu_tensors():
         tfa.flash_attention_bwd_fp32(q, q, q, q, torch.zeros(1, 2, 8), q)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64])
+def test_flash_blocks_sweep(rows):
+    """tests/test_kernels.py's block sweep on the fp32 route's tiling: at
+    the JAX test's shape and inputs, every query tile the plan can pick
+    with key tiles of 32, 64 and 128 keeps the JAX reference within the
+    JAX test's 2e-4."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(size=(1, 128, 1, 64)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    plan = tfa.fp32_plan(1, 128, 1, 1, 64)
+    for step in (32, 64, 128):
+        out, _ = fp32_forward_tiled(*map(torch.from_numpy, (q, k, v)), True,
+                                    0, plan._replace(rows=rows, step=step))
+        np.testing.assert_allclose(out.numpy(), want, atol=2e-4, rtol=2e-4)

@@ -26,11 +26,12 @@ from repro_torch.core import (UnsupportedPrimitive, capture,
                               normalize_mesh)
 from repro_torch.core.from_fx import default_input_names
 from repro_torch.core.spmd import PartitionSpec as P
-from repro_torch.core.spmd import psum
+from repro_torch.core.spmd import all_gather, psum
 from repro_torch.launch import verify as cli
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import chaos
 from repro_torch.runtime.cache import ENV_CACHE_DIR
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -264,11 +265,13 @@ def test_cli_fn_harness_errors_exit_2(capsys):
 def test_fn_task_is_the_dict_form():
     task = example.make_task()
     assert cli._fn_task_kwargs(task) == task
+    assert cli._fn_task_kwargs({**task, "strict": False}) == \
+        {**task, "strict": False}
     spec = function_spec(**task)
     bad = (
         (spec, "must return a dict"),
         (tuple(task.values()), "must return a dict"),
-        ({**task, "strict": False}, "unknown task keys"),
+        ({**task, "stict": False}, "unknown task keys"),
         ({"seq_fn": task["fn_seq"],
           **{k: v for k, v in task.items() if k != "fn_seq"}},
          "unknown task keys"),
@@ -279,6 +282,55 @@ def test_fn_task_is_the_dict_form():
     for t, msg in bad:
         with pytest.raises(ValueError, match=msg):
             cli._fn_task_kwargs(t)
+
+
+_FN_TASK_FILES = {
+    "port": """
+import torch
+from repro_torch.core.spmd import PartitionSpec as P, all_gather
+
+def seq(x):
+    return torch.cumprod(x, 0)
+
+def dist(x):
+    return all_gather(torch.cumprod(x, 0), "tp", axis=1, tiled=True)
+
+def make_task(**kw):
+    return dict(fn_seq=seq, fn_dist=dist, mesh={"tp": 2},
+                in_specs=(P(None, "tp"),), avals=[((4, 8), torch.float32)],
+                **kw)
+""",
+    "jax": """
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+
+def seq(x):
+    return jnp.cumprod(x, 0)
+
+def dist(x):
+    return jax.lax.all_gather(jnp.cumprod(x, 0), "tp", axis=1, tiled=True)
+
+def make_task(**kw):
+    return dict(fn_seq=seq, fn_dist=dist, mesh={"tp": 2},
+                in_specs=(P(None, "tp"),),
+                avals=[jax.ShapeDtypeStruct((4, 8), jnp.float32)], **kw)
+""",
+}
+
+
+def test_cli_fn_strict_key(capsys, tmp_path):
+    """A ``--fn`` task's ``strict`` key: an op outside the vocabulary is a
+    harness error (exit 2) by default and an opaque op that fails to
+    refine (exit 1) with ``"strict": False``, as in the JAX CLI."""
+    rcs = {}
+    for side, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("jax", jax_verify_main, [])):
+        path = tmp_path / f"{side}_task.py"
+        path.write_text(_FN_TASK_FILES[side] + "\n\ndef make_lenient():\n"
+                        "    return make_task(strict=False)\n")
+        rcs[side] = [_run(main, capsys, ["--fn", f"{path}:{fn}"] + extra)[0]
+                     for fn in ("make_task", "make_lenient")]
+    assert rcs["port"] == rcs["jax"] == [2, 1]
 
 
 def test_cli_fn_takes_a_file_path(capsys):
@@ -387,3 +439,240 @@ def test_cli_unported_paths_name_their_roadmap_items(flag, item, capsys):
     err = capsys.readouterr().err
     assert "unknown model `x`" in err or "invalid choice: 'x'" in err
     assert "item" not in err
+
+
+# ---------------------------------------------------------------------------
+# the strict/lenient contract of the JAX frontend (test_from_jaxpr.py), on
+# fx: lenient capture keeps an op outside the table as an opaque term (the
+# port names it by its aten op, ``opaque:aten.sort``, where jaxpr names the
+# primitive, ``opaque:sort``), and a user lemma on it lets the engine
+# reason through it, in both packages alike
+# ---------------------------------------------------------------------------
+
+def _sorted(x):
+    return torch.sort(x, dim=0)[0]
+
+
+def _jax_sorted():
+    import jax
+    import jax.numpy as jnp
+    return (lambda x: jnp.sort(x, axis=0)), \
+        [jax.ShapeDtypeStruct((8,), jnp.float32)]
+
+
+def _opaque_defs(g):
+    return [(t.op, [a.name for a in t.args], t.shape, t.dtype)
+            for _, t in g.defs if t.op.startswith("opaque:")]
+
+
+def test_unknown_primitive_raises_strict_and_is_opaque_lenient():
+    from repro.core import UnsupportedPrimitive as JUnsupported
+    from repro.core import capture_function as jcapture_function
+    line = inspect.getsourcelines(_sorted)[1] + 1
+    with pytest.raises(UnsupportedPrimitive) as ei:
+        capture_function(_sorted, [((8,), torch.float32)], device="cpu")
+    assert ei.value.primitive == "aten.sort"
+    assert f"test_torch_functions.py:{line} (_sorted)" in ei.value.source
+    fn, avals = _jax_sorted()
+    with pytest.raises(JUnsupported) as je:
+        jcapture_function(fn, avals)
+    assert ei.value.primitive == "aten." + je.value.primitive
+    hint = " — pass strict=False to capture it as an uninterpreted opaque op"
+    assert hint in str(ei.value) and hint in str(je.value)
+    # lenient: the values output is the JAX capture's opaque def (fx's sort
+    # also returns the indices, a second opaque output)
+    jdefs = _opaque_defs(jcapture_function(fn, avals, strict=False))
+    assert jdefs == [("opaque:sort", ["x"], (8,), "f")]
+    for g in (capture_function(_sorted, [((8,), torch.float32)],
+                               strict=False, device="cpu"),
+              capture(_sorted, [((8,), torch.float32)], ["x"],
+                      device="cpu")):
+        assert _opaque_defs(g) == [("opaque:aten.sort#0", ["x"], (8,), "f"),
+                                   ("opaque:aten.sort#1", ["x"], (8,), "i")]
+    # the op's other arguments are its attrs: sorting along another dim is
+    # another term (jaxpr's opaque term drops its params)
+    defs = [t for _, t in capture(
+        lambda x: (torch.cumprod(x, 0), torch.cumprod(x, 1)),
+        [((4, 4), torch.float32)], ["x"], device="cpu").defs]
+    assert [t.attrs for t in defs] == [(("params", ("0",)),),
+                                       (("params", ("1",)),)]
+    assert defs[0] != defs[1]
+
+
+def test_strict_hook_is_scoped():
+    """After a strict failure the default capture is back to normal: the
+    hook stack is empty and the op is an opaque term again."""
+    from repro_torch.core.capture import _NODE_HOOKS
+    with pytest.raises(UnsupportedPrimitive):
+        capture_function(_sorted, [((8,), torch.float32)], device="cpu")
+    assert _NODE_HOOKS == []
+    g = capture(_sorted, [((8,), torch.float32)], ["x"], device="cpu")
+    assert any("opaque:" in repr(t) for _, t in g.defs)
+
+
+def _seq_cumprod(x):
+    return torch.cumprod(x, 0)
+
+
+def _dist_cumprod(x):
+    return all_gather(torch.cumprod(x, 0), "tp", axis=1, tiled=True)
+
+
+def _jax_cumprod_task():
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    def seq(x):
+        return jnp.cumprod(x, 0)
+
+    def dist(x):
+        return jax.lax.all_gather(jnp.cumprod(x, 0), "tp", axis=1,
+                                  tiled=True)
+    return dict(fn_seq=seq, fn_dist=dist, mesh={"tp": 2},
+                in_specs=(JP(None, "tp"),),
+                avals=[jax.ShapeDtypeStruct((4, 8), jnp.float32)])
+
+
+CUMPROD_TASK = dict(fn_seq=_seq_cumprod, fn_dist=_dist_cumprod,
+                    mesh={"tp": 2}, in_specs=(P(None, "tp"),),
+                    avals=[((4, 8), torch.float32)])
+
+
+def _cumprod_lemma(pkg: str):
+    """A user lemma, written once for both packages: a cumprod along dim 0
+    is the concat of the pieces' cumprods along any other dim."""
+    import importlib
+    L = importlib.import_module(pkg + ".core.lemmas")
+    T = importlib.import_module(pkg + ".core.terms")
+
+    def fn(eg, node, cid):
+        (cx,) = node.children
+        dtype = eg.info(cid).dtype
+        return [(cid, T.concat([T.Term(node.op, (L.cls(eg, x),), node.attrs,
+                                       eg.info(x).shape, dtype)
+                                for x in xs], dim))
+                for dim, xs in L.concat_reps(eg, cx) if dim != 0]
+    return L, fn
+
+
+def test_register_lemma_on_an_opaque_op():
+    """A distributed cumprod (sharded along dim 1, gathered) is refused
+    strictly, fails to refine leniently with no lemma (nothing reasons
+    through the opaque op), and certifies once the user's lemma is
+    registered: the same verdicts, localizations and R_o as the JAX
+    package's."""
+    from repro.api import verify_functions as jverify_functions
+    jtask = _jax_cumprod_task()
+
+    def both(**kw):
+        return (verify_functions(**CUMPROD_TASK, **kw, device="cpu"),
+                jverify_functions(**jtask, **kw))
+
+    mine, ref = both()
+    assert mine.verdict == ref.verdict == "error"
+    assert "UnsupportedPrimitive" in mine.error
+    mine, ref = both(strict=False)
+    assert mine.verdict == ref.verdict == "refinement_error"
+    loc = {k: mine.localization[k] for k in KEYS}
+    assert loc == {**{k: ref.localization[k] for k in KEYS},
+                   "op_name": "opaque:aten.cumprod"}
+    assert ref.localization["op_name"] == "opaque:cumprod"
+    lemmas = []
+    try:
+        for pkg, op in (("repro_torch", "opaque:aten.cumprod"),
+                        ("repro", "opaque:cumprod")):
+            L, fn = _cumprod_lemma(pkg)
+            lemmas.append((L, L.register_lemma("cumprod_concat", {op}, fn)))
+        mine, ref = both(strict=False)
+    finally:
+        for L, lem in lemmas:
+            L._USER_LEMMAS.remove(lem)
+    assert mine.verdict == ref.verdict == "certificate"
+    assert mine.r_o == ref.r_o
+    assert mine.stats["lemma_fires"]["cumprod_concat"] == \
+        ref.stats["lemma_fires"]["cumprod_concat"] > 0
+
+
+def test_supported_primitives_is_a_real_vocabulary():
+    """The fx counterparts of the JAX table's core primitives are in the
+    port's table, and sort is in neither."""
+    from repro.core import SUPPORTED_PRIMITIVES as JSUPPORTED
+    from repro_torch.core import SUPPORTED_PRIMITIVES
+    pairs = {"dot_general": "aten.mm", "psum": "repro_spmd.psum",
+             "all_gather": "repro_spmd.all_gather",
+             "reduce_sum": "aten.sum", "concatenate": "aten.cat",
+             "tanh": "aten.tanh", "add": "aten.add"}
+    assert set(pairs) <= JSUPPORTED
+    assert set(pairs.values()) <= SUPPORTED_PRIMITIVES
+    assert "sort" not in JSUPPORTED
+    assert "aten.sort" not in SUPPORTED_PRIMITIVES
+
+
+def test_source_location_is_best_effort():
+    from repro_torch.core.capture import source_location
+
+    class NoInfo:
+        meta = {}
+    assert source_location(NoInfo()) == "<unknown>"
+
+
+def _ssm_loop(x, a):
+    h = torch.zeros_like(x[0])
+    ys = []
+    for t in range(x.shape[0]):
+        h = a * h + x[t]
+        ys.append(h)
+    return torch.stack(ys)
+
+
+def test_loop_recurrence_unrolls_where_jax_scan_is_over_budget():
+    """A JAX recurrence written as ``lax.scan`` is refused past the JAX
+    frontend's unroll budget, naming the primitive and the reason. fx has
+    no loop primitive: ``make_fx`` unrolls a Python loop, as jax does the
+    same loop written in jnp. The port's capture of the torch loop gives
+    the JAX capture's defs of the jnp loop (``pretty``, exact; this needed
+    ``aten.stack``'s lowering, the jnp.stack defs) and computes the scan's
+    values (rtol 1e-6)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.core import UnsupportedPrimitive as JUnsupported
+    from repro.core import capture_function as jcapture_function
+    from repro.core.terms import pretty as jpretty
+    from repro_torch.core.terms import eval_term, pretty
+
+    def ssm(x, a):
+        def step(h, xt):
+            h = a * h + xt
+            return h, h
+        return jax.lax.scan(step, jnp.zeros_like(x[0]), x)[1]
+
+    def ssm_loop(x, a):
+        h = jnp.zeros_like(x[0])
+        ys = []
+        for t in range(x.shape[0]):
+            h = a * h + x[t]
+            ys.append(h)
+        return jnp.stack(ys)
+
+    javals = [jax.ShapeDtypeStruct((16, 4), jnp.float32),
+              jax.ShapeDtypeStruct((4,), jnp.float32)]
+    with pytest.raises(JUnsupported) as je:
+        jcapture_function(ssm, javals)
+    assert je.value.primitive == "scan" and "unroll budget" in je.value.reason
+    g = capture_function(_ssm_loop, [((16, 4), torch.float32),
+                                     ((4,), torch.float32)], device="cpu")
+    jg = jcapture_function(ssm_loop, javals)
+    assert [pretty(t, 2) for _, t in g.defs] == \
+        [jpretty(t, 2) for _, t in jg.defs]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 4)).astype(np.float32)
+    a = rng.uniform(0.5, 0.9, (4,)).astype(np.float32)
+    env = {"x": torch.from_numpy(x), "a": torch.from_numpy(a)}
+    env.update(g.consts)
+    for name, term in g.defs:
+        env[name] = eval_term(term, env)
+    (out,) = g.outputs
+    np.testing.assert_allclose(env[out].numpy(), np.asarray(ssm(x, a)),
+                               rtol=1e-6, atol=1e-6)

@@ -50,6 +50,7 @@ from repro_torch.gradcheck import (TrainReport, capture_backward,
                                    register_train_strategy, replay_train)
 from repro_torch.launch.verify import main as verify_main
 from torch_parity import carried, close_to_scale, outcome, run, shard
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 P = spmd.PartitionSpec
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -23,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref as tref
 from repro_torch.kernels import rmsnorm as trn
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

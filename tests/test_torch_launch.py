@@ -32,6 +32,7 @@ from repro_torch.models import config as tconfig
 from repro_torch.models import convert
 from repro_torch.models import registry as treg
 from repro_torch.sharding import specs as tspecs
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = treg.ARCH_IDS + ["gpt"]

@@ -61,6 +61,7 @@ from repro_torch.runtime.cache import engine_fingerprint
 from repro_torch.sharding.specs import (DEFAULT_PLANS, default_rules,
                                         parse_plan)
 from torch_parity import carried, close_to_scale, outcome, run, shard
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = json.load(open(os.path.join(ROOT, "BENCH_verify.json")))
@@ -302,6 +303,14 @@ def test_capture_parity(model, plan):
         {k: r["r_o"] for k, r in ref.reports.items()}
     assert _fires(mine) == _fires(ref)
     assert mine.gs_ops_total == ref.gs_ops_total
+
+
+def test_moe_model_certificate():
+    """mixtral-8x7b at tp2: a certificate from 3 unique obligations, as in
+    the JAX package (its whole report: ``test_capture_parity``)."""
+    report = check_model("mixtral-8x7b", "tp2", workers=0, **CPU)
+    assert report.verdict == "certificate" and report.ok
+    assert report.unique_obligations == 3
 
 
 def test_supported_models_are_the_eight():

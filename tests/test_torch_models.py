@@ -20,6 +20,7 @@ from repro_torch.models import registry as treg
 from repro_torch.train import serve as tserve
 
 from test_torch_families_common import ALL_ARCHS, FAMILY_ARCHS, f32
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 # --- configs, counts, logical axes ---------------------------------------
 

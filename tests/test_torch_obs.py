@@ -1,0 +1,277 @@
+"""The JAX package's observability checks (``tests/test_obs.py``) held
+against the port's ``repro_torch.obs``.
+
+Span nesting and the no-op module API when tracing is off; a Chrome trace
+of a traced ``verify`` with the engine's spans, loading through both
+export formats; certificates identical with tracing on or off; per-lemma
+stats identical in process and on two spawned workers; the inspection
+renderer and the metrics registry, each fed the same events or samples as
+the JAX package's and giving the same output; and the CLI's ``--trace`` /
+``--metrics`` leaving the envelope and certificate as they were. The
+workers' distinct pids are held in ``test_torch_suite.py``.
+"""
+import json
+import time
+
+import pytest
+
+from repro import obs as jobs
+from repro.obs import trace as jtrace
+from repro.obs.inspect import lemma_totals as jlemma_totals
+from repro.obs.inspect import obligation_rows as jobligation_rows
+from repro.obs.inspect import render as jrender
+from repro.obs.metrics import MetricsRegistry as JMetricsRegistry
+from repro.obs.metrics import render as jrender_metrics
+
+from repro_torch import obs
+from repro_torch.api import Suite, verify
+from repro_torch.launch.verify import main as verify_main
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.inspect import (lemma_totals, obligation_rows, render,
+                                     report)
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import render as render_metrics
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
+
+CPU = {"device": "cpu"}
+
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_tracer():
+    """A test that fails mid-span must not leave its tracer installed."""
+    yield
+    obs_trace.install(None)
+    jtrace.install(None)
+
+
+def _spans(events):
+    return [e for e in events if e.get("ph") == "X"]
+
+
+# ---------------------------------------------------------------------------
+# spans: nesting, export formats
+# ---------------------------------------------------------------------------
+
+def _nested(o, trace):
+    tracer = trace.start("t")
+    with o.span("outer", cat="engine", tag=1):
+        with o.span("inner_a"):
+            time.sleep(0.001)
+        with o.span("inner_b"):
+            time.sleep(0.001)
+    trace.stop()
+    return tracer
+
+
+def test_span_nesting_well_formed():
+    tracer = _nested(obs, obs_trace)
+    spans = {e["name"]: e for e in _spans(tracer.events)}
+    outer, a, b = spans["outer"], spans["inner_a"], spans["inner_b"]
+    assert outer["args"]["depth"] == 0 and outer["args"]["tag"] == 1
+    assert a["args"]["depth"] == b["args"]["depth"] == 1
+    assert outer["pid"] == a["pid"] == b["pid"] == tracer.pid
+    for inner in (a, b):
+        assert outer["ts"] <= inner["ts"]
+        assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert a["ts"] + a["dur"] <= b["ts"]
+    # the same events as the JAX tracer's, times and pids aside
+    jspans = _spans(_nested(jobs, jtrace).events)
+
+    def shape(es):
+        return [(e["name"], e["cat"], e["args"]) for e in es]
+    assert shape(_spans(tracer.events)) == shape(jspans)
+
+
+def test_module_level_api_is_noop_when_off():
+    assert obs_trace.current() is None
+    with obs.span("nothing"):
+        obs.event("nothing.event")
+        obs.counter("nothing.counter", n=1)
+        obs.complete("nothing.span", 1.0, 2.0)
+    assert obs_trace.current() is None
+
+
+def test_chrome_trace_loads_and_has_engine_spans(tmp_path):
+    tracer = obs_trace.start("main")
+    rep = verify("tp_layer", **CPU)
+    obs_trace.stop()
+    assert rep.ok
+    path = tmp_path / "trace.json"
+    tracer.write_chrome(str(path))
+    obj = json.loads(path.read_text())
+    assert obj["displayTimeUnit"] == "ms"
+    evs = obj["traceEvents"]
+    assert evs and evs[0]["ph"] == "M"
+    for e in evs:
+        assert {"name", "ph", "ts", "pid"} <= set(e)
+    names = {e["name"] for e in evs}
+    assert {"capture", "infer", "saturate", "extract",
+            "saturate.batch"} <= names
+    assert any(n.startswith("op:") for n in names)
+    jl = tmp_path / "trace.jsonl"
+    tracer.write_jsonl(str(jl))
+    assert len(obs_trace.load_events(str(path))) == len(evs)
+    assert len(obs_trace.load_events(str(jl))) == \
+        len([e for e in evs if e["ph"] != "M"])
+
+
+# ---------------------------------------------------------------------------
+# behaviour-neutrality
+# ---------------------------------------------------------------------------
+
+def test_certificate_byte_identical_tracing_on_off():
+    off = verify("tp_layer", **CPU)
+    tracer = obs_trace.start("main")
+    on = verify("tp_layer", **CPU)
+    obs_trace.stop()
+    assert tracer.events
+    assert off.ok and on.ok
+    assert json.dumps(off.r_o, sort_keys=True) == \
+        json.dumps(on.r_o, sort_keys=True)
+    for k in ("lemmas", "lemma_fires", "gs_ops", "gd_ops", "egraph_nodes"):
+        assert off.stats[k] == on.stats[k], k
+
+
+def test_lemma_stats_deterministic_across_worker_counts():
+    with Suite(cases=["tp_layer"], degrees=(2,)) as s:
+        seq = s.run(workers=0, **CPU)
+        par = s.run(workers=2, timeout_s=120.0, **CPU)
+    a = seq.reports[0].stats["lemmas"]
+    b = par.reports[0].stats["lemmas"]
+    assert a and a == b
+    for row in a.values():
+        assert set(row) == {"calls", "hits", "fires"}
+        assert row["hits"] <= row["calls"]
+    assert par.summary()["runtime"]["tasks"] == 1
+    assert "runtime" not in json.dumps(par.stable_summary())
+
+
+# ---------------------------------------------------------------------------
+# inspection: renderer + metrics registry
+# ---------------------------------------------------------------------------
+
+def _inspected(trace):
+    tracer = trace.Tracer("main")
+    tracer.event("saturate.batch", cat="engine",
+                 fires={"concat_merge": 5, "slice_cover": 1},
+                 ms={"concat_merge": 2.0, "slice_cover": 1.0})
+    tracer.complete("queue", 10.0, 10.5, key="ob1")
+    tracer.complete("run", 10.5, 11.0, key="ob1", status="ok")
+    return tracer
+
+
+def test_inspect_render_names_top_lemma(tmp_path, capsys):
+    tracer = _inspected(obs_trace)
+    totals = lemma_totals(tracer.events)
+    assert totals["concat_merge"] == {"fires": 5, "ms": 2.0}
+    rows = obligation_rows(tracer.events)
+    assert rows[0]["key"] == "ob1"
+    assert rows[0]["queue_ms"] == pytest.approx(500.0)
+    assert rows[0]["run_ms"] == pytest.approx(500.0)
+    out = render(tracer.events)
+    assert "ob1" in out and "queue" in out
+    assert out.endswith("top lemma: concat_merge")
+    jevents = _inspected(jtrace).events
+    assert totals == jlemma_totals(jevents)
+    assert rows == jobligation_rows(jevents)
+    assert out.splitlines()[-1] == jrender(jevents).splitlines()[-1]
+    p = tmp_path / "t.json"
+    tracer.write_chrome(str(p))
+    assert report(str(p)) == 0
+    assert "top lemma: concat_merge" in capsys.readouterr().out
+    empty = tmp_path / "empty.jsonl"
+    empty.write_text("")
+    assert report(str(empty)) == 1
+
+
+def _metrics(Registry):
+    reg = Registry()
+    reg.counter("cache.hits").inc()
+    reg.counter("cache.hits").inc(2)
+    h = reg.histogram("pool.queue_s")
+    for v in (1.0, 2.0, 3.0, 4.0):
+        h.observe(v)
+    return reg
+
+
+def test_metrics_registry_and_render():
+    reg = _metrics(MetricsRegistry)
+    snap = reg.snapshot()
+    assert snap["counters"] == {"cache.hits": 3}
+    hs = snap["histograms"]["pool.queue_s"]
+    assert hs["count"] == 4 and hs["sum"] == 10.0
+    assert hs["min"] == 1.0 and hs["max"] == 4.0
+    text = render_metrics(reg)
+    assert text.startswith("-- metrics --")
+    assert "cache.hits" in text and "pool.queue_s" in text
+    jreg = _metrics(JMetricsRegistry)
+    assert snap == jreg.snapshot()
+    assert text == jrender_metrics(jreg)
+    reg.reset()
+    assert reg.snapshot() == {"counters": {}, "histograms": {}}
+    assert "(no metrics recorded)" in render_metrics(reg)
+
+
+def test_histogram_reservoir_is_deterministic():
+    """Two port registries, and the JAX package's, fed one stream that
+    wraps the reservoir twice keep the same samples and snapshot."""
+    regs = [MetricsRegistry(), MetricsRegistry(), JMetricsRegistry()]
+    for reg in regs:
+        h = reg.histogram("x")
+        for i in range(3 * h.SAMPLE + 7):
+            h.observe(i % 97)
+    a, b, j = regs
+    assert a.snapshot() == b.snapshot() == j.snapshot()
+    assert a.histogram("x")._sample == j.histogram("x")._sample
+    assert a.histogram("x").SAMPLE == j.histogram("x").SAMPLE
+
+
+# ---------------------------------------------------------------------------
+# CLI: --trace / --metrics
+# ---------------------------------------------------------------------------
+
+def _case_envelope(capsys, argv):
+    try:
+        verify_main(argv + ["--device", "cpu"])
+    except SystemExit as e:
+        assert e.code in (None, 0)
+    return json.loads(capsys.readouterr().out)
+
+
+def _stable_report(env):
+    rep = json.loads(json.dumps(env["report"]))
+    rep.pop("wall_s", None)
+    rep.pop("runtime", None)
+    stats = rep.get("stats") or {}
+    stats.pop("time_s", None)
+    stats.pop("phase_s", None)
+    return json.dumps(rep, sort_keys=True)
+
+
+def test_cli_trace_does_not_change_envelope_or_certificate(tmp_path, capsys):
+    plain = _case_envelope(capsys, ["--case", "tp_layer", "--json"])
+    traced = _case_envelope(
+        capsys, ["--case", "tp_layer", "--json",
+                 "--trace", str(tmp_path / "t.json")])
+    assert set(plain) == set(traced) == \
+        {"schema_version", "kind", "timing", "report"}
+    assert _stable_report(plain) == _stable_report(traced)
+
+
+def test_cli_trace_and_metrics_flags(tmp_path, capsys):
+    trace_path = tmp_path / "trace.json"
+    verify_main(["--case", "tp_layer", "--json", "--device", "cpu",
+                 "--trace", str(trace_path), "--metrics"])
+    cap = capsys.readouterr()
+    env = json.loads(cap.out)
+    assert set(env) == {"schema_version", "kind", "timing", "report",
+                        "metrics"}
+    assert env["metrics"]["counters"].get("engine.runs", 0) >= 1
+    assert "-- metrics --" in cap.err and "[obs] wrote" in cap.err
+    assert trace_path.exists()
+    assert (tmp_path / "trace.json.jsonl").exists()
+    events = obs_trace.load_events(str(trace_path))
+    assert any(e.get("name") == "infer" for e in events)
+    assert "top lemma:" in render(events)
+    assert obs_trace.current() is None

@@ -18,6 +18,7 @@ import pytest
 import torch_runtime_tasks as tasks
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import RuntimeTask, SupervisedPool, chaos
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 WORKERS = 2
 BUDGET_S = 2.0

@@ -17,6 +17,7 @@ import sys
 import pytest
 
 import torch_runtime_tasks as tasks
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 from repro.runtime import chaos as jax_chaos
 from repro.runtime.cache import _line_for as jax_line_for
 from repro_torch.api import build_spec
@@ -405,3 +406,60 @@ class TestPool:
                                     cache_key="ck-e")], cache=cache)
         assert out["e"].ok and out["e"].cache == "miss"
         assert "ck-e" not in cache
+
+
+# ---------------------------------------------------------------------------
+# scheduler integration (the JAX package's TestSchedulerFaults): the
+# modelcheck cache and crash containment, the gradcheck hang. The suite's
+# crash and warm-cache checks are in test_torch_suite.py.
+# ---------------------------------------------------------------------------
+
+class TestSchedulerFaults:
+    def test_modelcheck_cache_resume_reproves_only_damaged(self, tmp_path):
+        from repro_torch.modelcheck import check_model
+        d = tmp_path / "c"
+        cold = check_model("gpt", "dp2", workers=0, cache=d, device="cpu")
+        assert cold.verdict == "certificate"
+        assert cold.cache["misses"] == cold.unique_obligations
+        cache = CertificateCache(d)
+        raw = open(cache.journal_path, "rb").read()
+        with open(cache.journal_path, "wb") as f:
+            f.write(raw[:-10])
+        warm = check_model("gpt", "dp2", workers=0, cache=d, device="cpu")
+        assert warm.cache["hits"] == cold.unique_obligations - 1
+        assert warm.cache["misses"] == 1
+        assert warm.cache["recovered_corrupt"] == 1
+        assert {k: v["r_o"] for k, v in warm.reports.items()} \
+            == {k: v["r_o"] for k, v in cold.reports.items()}
+
+    def test_modelcheck_crash_localized_to_obligation(self, monkeypatch):
+        from repro_torch.modelcheck import check_model
+        from repro_torch.modelcheck.decompose import decompose
+        clean = check_model("gpt", "dp2", workers=0, device="cpu")
+        victim = decompose("gpt", "dp2", device="cpu").obset.keys_in_order()[1]
+        monkeypatch.setenv(chaos.ENV_SPEC, "crash:1")
+        monkeypatch.setenv(chaos.ENV_TARGET, victim)
+        rep = check_model("gpt", "dp2", workers=2, timeout_s=120.0,
+                          device="cpu")
+        assert rep.verdict == "error" and not rep.ok
+        errored = {b.obligation for b in rep.blocks if b.verdict == "error"}
+        assert errored == {victim}
+        for key, nested in rep.reports.items():
+            if key != victim:
+                assert nested["verdict"] == clean.reports[key]["verdict"]
+                assert nested["r_o"] == clean.reports[key]["r_o"]
+
+    def test_gradcheck_hang_times_out_one_param(self, monkeypatch):
+        """The JAX test's 4 s budget is missed under ``-n 6``; the port's
+        budget starts when the task starts on its warmed worker, and 10 s
+        leaves w2 (~1 s) far inside it."""
+        from repro_torch.gradcheck import check_train
+        monkeypatch.setenv(chaos.ENV_SPEC, "hang:1")
+        monkeypatch.setenv(chaos.ENV_TARGET, ":w1")
+        rep = check_train("dp_accum", workers=2, timeout_s=10.0,
+                          device="cpu")
+        assert not rep.ok and rep.verdict != "certificate"
+        assert rep.failing_params == ["w1"]
+        assert rep.reports["w1"]["verdict"] == "timeout"
+        assert "budget" in rep.reports["w1"]["error"]
+        assert rep.reports["w2"]["verdict"] == "certificate"

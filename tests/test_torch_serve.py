@@ -27,6 +27,7 @@ from repro_torch.models import convert
 from repro_torch.models import registry as treg
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import serve as tserve
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["yi-9b", "gemma3-12b"]

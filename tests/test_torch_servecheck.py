@@ -48,6 +48,7 @@ from repro_torch.servecheck import (CACHE_AXES, CACHE_LAYOUTS, ServeReport,
 from repro_torch.sharding.specs import parse_plan
 from torch_parity import carried, outcome, report_fires as fires, \
     stable_report_json as stable_json
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = json.load(open(os.path.join(ROOT, "BENCH_verify.json")))
@@ -167,12 +168,36 @@ def test_canonical_keys_and_blocks_as_jax(task):
 def test_dedup_counts():
     tp = get_serve_strategy("tp_decode").build(2)
     assert (tp.total_blocks, tp.n_unique) == (9, 4)     # first/mid/last+read
+    sp = get_serve_strategy("sp_cache").build(2)
+    assert (sp.total_blocks, sp.n_unique) == (9, 4)     # lfirst/lmid/llast
     sp = get_serve_strategy("sp_cache").build(4)
     assert (sp.total_blocks, sp.n_unique) == (9, 3)     # lfirst/llast+read
     bd = get_serve_strategy("batched_decode").build((2, 2))
     assert (bd.total_blocks, bd.n_unique) == (5, 5)     # no dedup
     assert serve_cache_key("tp_decode", "serve_step-abc123") == \
         "serve:tp_decode-abc123:mn400000"
+
+
+def test_bug_splits_its_position_class():
+    """An injected bug changes its step's structure, splitting it out of
+    its position class (localization rides on that split)."""
+    clean = get_serve_strategy("tp_decode").build(degree=2)
+    bugged = get_serve_strategy("tp_decode").build(
+        degree=2, bug="stale_cache_shard")
+    assert bugged.n_unique == clean.n_unique + 1
+    key = dict(bugged.blocks)
+    assert key["step3"] != key["step2"] == key["step4"]
+    assert bugged.blocks == jget_serve_strategy("tp_decode").build(
+        degree=2, bug="stale_cache_shard").blocks
+
+
+def test_cli_list_serve_rows(capsys):
+    from repro_torch.launch.verify import main as verify_main
+    verify_main(["--list"])
+    out = capsys.readouterr().out
+    assert "[serve]" in out
+    assert "serve@tp_decode" in out and "serve@batched_decode" in out
+    assert "stale_cache_shard" in out and "cache_gather_wrong_axis" in out
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro_torch.runtime import cache as cache_mod
 from repro_torch.runtime.cache import engine_fingerprint
 from repro_torch.servecheck import check_serve, get_serve_strategy
 from torch_parity import close_to_scale, run, shard, stable_report_json
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = {"device": "cpu"}

@@ -18,6 +18,7 @@ from repro.servecheck import check_serve as jcheck_serve
 from repro_torch.servecheck import check_serve, get_serve_strategy
 from torch_parity import report_fires as fires, \
     stable_report_json as stable_json
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 CPU = {"device": "cpu"}
 

@@ -25,6 +25,7 @@ from repro_torch.obs import inspect as obs_inspect
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import CertificateCache, chaos
 from repro_torch.runtime.cache import ENV_CACHE_DIR
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "suite_degree2.json")

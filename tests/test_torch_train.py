@@ -55,6 +55,7 @@ from repro_torch.models import convert, registry
 from repro_torch.optim import adamw
 from repro_torch.train import (TrainConfig, init_state, make_grad_fn,
                                make_train_step, trainable)
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 CPU = {"device": "cpu"}
 ARCHS = registry.ARCH_IDS + ["gpt"]      # tests/test_arch_smoke.py's
@@ -477,3 +478,40 @@ def test_launch_train_defaults_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(["--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# tests/test_substrate.py's training checks on the port alone
+# ---------------------------------------------------------------------------
+
+def test_loss_decreases_tiny_gpt():
+    """30 steps of the reduced gpt on the synthetic stream lower the mean
+    loss of the last five below the first five's (JAX's own check)."""
+    cfg = registry.load_config("gpt").reduced()
+    model = trainable(registry.init_params(cfg, seed=0, **CPU))
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=3e-3, warmup_steps=5)))
+    ds = SyntheticTextDataset(vocab=cfg.vocab, seq_len=32, batch=4)
+    losses = []
+    for i in range(30):
+        _, opt, m = step(model, opt, ds.batch_at(i, **CPU))
+        losses.append(float(m["loss"]))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+
+
+def test_grad_accum_matches_full_batch():
+    """A step over two microbatches moves the parameters as one over the
+    whole batch (rtol 2e-2, atol 2e-3: the JAX test's limits)."""
+    cfg = registry.load_config("gpt").reduced()
+    batch = SyntheticTextDataset(vocab=cfg.vocab, seq_len=16,
+                                 batch=4).batch_at(0, **CPU)
+    moved = []
+    for mb in (1, 2):
+        model = trainable(registry.init_params(cfg, seed=0, **CPU))
+        opt = adamw.init(dict(model.named_parameters()))
+        make_train_step(cfg, TrainConfig(microbatches=mb))(model, opt, batch)
+        moved.append({n: p.detach() for n, p in model.named_parameters()})
+    for n, p in moved[0].items():
+        np.testing.assert_allclose(moved[1][n].float().numpy(),
+                                   p.float().numpy(), rtol=2e-2, atol=2e-3)

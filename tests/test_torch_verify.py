@@ -12,6 +12,7 @@ import torch
 from repro_torch import api as tapi
 from repro_torch.launch import verify as cli
 from repro_torch import quickstart
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -123,6 +124,7 @@ def test_serve_task_kind_runs(capsys):
     report = tapi.check_serve_task("serve@batched_decode", device="cpu")
     assert report.ok and (report.total_steps,
                           report.unique_obligations) == (5, 5)
+    assert report.task_id() == "serve@batched_decode@deg2x2"
     with pytest.raises(KeyError, match="bad serve task"):
         tapi.check_serve_task("tp_decode")
     code, out = _main(capsys, "--serve", "tp_decode", "--device", "cpu")

@@ -25,6 +25,7 @@ import torch
 from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
+from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 TOL = {jnp.float32: 2e-4, jnp.bfloat16: 5e-2}

@@ -1,11 +1,15 @@
 """Helpers the port's parity tests share: carrying a JAX-captured graph
 into the port's engine, sharding numpy inputs per rank, evaluating a
-graph's defs, and float32 agreement to an output's scale. Imports neither
-JAX nor the JAX package (the graphs arrive as objects)."""
+graph's defs, float32 agreement to an output's scale, and torch on one
+thread. Imports neither JAX nor the JAX package (the graphs arrive as
+objects)."""
+import contextlib
 import itertools
 import json
+import os
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core.convert import graph_from_obj, relation_from_obj
@@ -103,3 +107,39 @@ def report_fires(report) -> dict:
     """{obligation key: lemma fires} of a report's nested reports."""
     return {k: (r.get("stats") or {}).get("lemma_fires")
             for k, r in report.reports.items()}
+
+
+
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1"}
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread for the block, and ``OMP_NUM_THREADS=1``
+    for the processes it starts (pool workers, interpreters). Tier-1 runs
+    six pytest workers on the machine's cores, where torch's default of a
+    thread a core makes small ops wait on each other: 29 steps of the
+    reduced gpt take ~1 s on one thread and ~47 s on eight beside five busy
+    processes, and six of the port's test files, on six workers, 1812 s
+    summed on the default threads against 652 s on one (an 8-core CPU)."""
+    n = torch.get_num_threads()
+    saved = {k: os.environ.get(k) for k in ONE_THREAD_ENV}
+    torch.set_num_threads(1)
+    os.environ.update(ONE_THREAD_ENV)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread_module():
+    """Each port test module on one thread (``one_thread``); a module
+    takes it by importing this fixture."""
+    with one_thread():
+        yield
