@@ -143,9 +143,10 @@ autograd through the plain versions on the card, in float32 (the
 attention's float32 route and its backward kernel; loss within 1e-5
 relative, every parameter's gradient within 2e-4 relative RMS) and bf16 (loss within 1e-2, gradient norm within 2e-2); yi-9b at
 full width, 8 of its 48 layers (AdamW's ~12 bytes a parameter would not
-fit 48), 2 steps of 1 x 4096 tokens in bf16 (17 / 8 forward and backward
-launches a step), profiled for the share of a step's device time in each
-backward kernel by its kernels' names, and its peak memory;
+fit 48), 2 steps of 1 x 4096 tokens in bf16 and a third under the
+profiler, in a process of its own (17 / 8 forward and backward launches a
+step), the profiled step's device time split by kernel name as phase
+13's, and its peak memory;
 launch.train's own main for 20 steps of the reduced config (float32: 5
 RMSNorm and 2 fp32 attention backward launches a step, no bf16
 attention backward); then
@@ -191,6 +192,37 @@ the same terms on the CPU and against each other within AUDIT_REL of
 the output's scale; (c) tp_dp_2d's explanation (lemma chain) on the card
 equal to the CPU's, with the same explain_steps. It launches no kernel
 and prints one line: its wall and counts.
+Phase 13 (run after phase 9) trains the nine other configs on the card
+through train.make_train_step, the JAX package's step, each in a process
+of its own (``train_worker``): published widths in bf16 from seed 0, the
+depth cut only where AdamW's state (12 bytes a parameter, reckoned on the
+meta device) would pass STATE_BUDGET, to whole periods of the layer
+pattern (gemma3-12b 12 of 48 layers, gemma3-27b 6 of 62, command-r 2 of
+40, mixtral 2 of 32); mamba2 and recurrentgemma remat their blocks, as
+the activations their step saves (reckoned on fake tensors) pass the
+ACT_BUDGET left; kimi-k2, one of whose layers alone holds 204 GB of
+state, trains its reduced config (fp32) with its 384 experts, top-8. For
+each: TRAIN_STEPS steps of 1 x 4096 tokens (qwen2-vl 4 x (1024 patches +
+256 tokens), whisper 4 x 256 over 1500 frames) and a fourth under the
+profiler, every loss finite, exactly ``expected_train_launches`` a step
+(K1 and K2 with one backward launch each, twice the forward under
+remat), step ms, tokens/s and peak memory below 80 GB; the profiled
+step's device time by kernel name (``step_split``: K1's and K2's forward
+and backward, cuBLAS's products, the chunked CE, AdamW and the rest,
+summing to its busy time); the gradients of one batch against the plain
+path (``grads_check``: bf16 at the cut width, 1 x 1024, loss 1e-2 and
+norm 2e-2, mamba2's by its loss and, with the plain forward, K1's
+backward kernel by the norm; fp32 at the reduced config, loss 1e-5 and
+each leaf 2e-4 relative RMS; MoE's flipped dispatch share recorded).
+Then each backward kernel at every shape of each family's step
+(``train_shapes``, with the launches made there) against its closed
+form, timed beside it, the library's backward (SDPA's with a boolean
+mask where a window bites) and its bound.
+
+    python -c "import chip_smoke as c; c.phase0(); c.rounding_draws()"
+
+shows how far rounding alone moves mamba2's bf16 gradient (one JSON line
+a trial).
 
     python -c "import chip_smoke as c; c.hang_leg_loop(20)"
 
@@ -207,7 +239,8 @@ train_gpt_100m's (4, 256) microbatch, timed in phases 1 and 9, those of
 phase 11's drivers). Any failure raises and exits non-zero, and
 the script exits non-zero without a CUDA device. The backward kernels
 have entries of their own (ms the kernel's, plain_ms the closed form's,
-library_ms the PyTorch call's backward).
+library_ms the PyTorch call's backward), at phase 13's shapes too, with
+the launches of the family's steps.
 
     python3 chip_smoke.py --windowed-profiles
 
@@ -217,6 +250,7 @@ attention path's and K2's share of device time, with the package beside
 the script: a copy of this file beside another tree's ``src`` measures
 that tree.
 """
+import collections
 import contextlib
 import copy
 import ctypes
@@ -548,7 +582,8 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
     and both sides round the output to bf16 (an absolute limit would exceed
     the outputs themselves at long S: a causal row i averages i+1 values).
     ``timed``: the kernel, the plain version and SDPA (with the boolean
-    window mask where there is a window: SDPA's flash backend takes none)
+    window mask where the window bites, window < S: SDPA's flash backend
+    takes none; else ``is_causal``)
     by CUDA events, the host's time to enqueue one call (48 in a row, as a
     forward's layers), and the bound over the pairs the mask lets
     through."""
@@ -577,8 +612,9 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
     if timed:
         it = 5 if S >= 4096 else 20
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mask = fa.key_mask(S, S, causal, window, q.device) if window \
-            else None
+        # a window of S keys or more is the causal mask alone
+        mask = fa.key_mask(S, S, causal, window, q.device) \
+            if window and window < S else None
         rec["ms"] = time_ms(lambda: fa.flash_attention(
             q, k, v, causal=causal, window=window), it, flush)
         rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
@@ -586,7 +622,7 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
         rec["library_ms"] = time_ms(sdpa, it, flush)
         rec["host_us"] = host_us(lambda: fa.flash_attention(
@@ -607,16 +643,10 @@ def k2_record(shape, causal, window, dt, timed, g, flush, bound, tag=None):
 
 def phase1(peaks):
     from repro_torch.kernels import rmsnorm as rn
-    bw, bf16_rate, f32_rate = peaks
-    rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate,
-            "tf32x3": bf16_rate / 6}
+    bound = bound_fn(peaks)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     records = []
-
-    def bound(nbytes, nops, dt):
-        t_bytes, t_ops = nbytes / bw * 1e3, nops / rate[dt] * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     # K1 RMSNorm: the JAX test shapes, then yi-9b's decode (4 rows),
     # prefill (4 x 256) and long-prefill (1 x 4096) rows. Every shape runs
@@ -2192,12 +2222,14 @@ TRAIN_CLI_STEPS = 20           # launch.train's own main, reduced config
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(norm=None):
     """The models' kernel dispatch sent to the plain versions on the card
-    too: the reference path the kernels' gradients are held against."""
+    too: the reference path the kernels' gradients are held against
+    (``norm``: another plain RMSNorm in place of ``rmsnorm_plain``)."""
     from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn
     saved = ops.rmsnorm, ops.flash_attention
-    ops.rmsnorm = lambda x, s, eps=1e-6: rn.rmsnorm_plain(x, s, eps)
+    norm = norm or rn.rmsnorm_plain
+    ops.rmsnorm = lambda x, s, eps=1e-6: norm(x, s, eps)
     ops.flash_attention = lambda q, k, v, *, causal=True, window=0: \
         fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     try:
@@ -2434,71 +2466,22 @@ def grads_against_plain(smi):
     return out
 
 
-def train_yi(smi):
+def yi_spec(card):
     """(c) yi-9b at full width, YI_LAYERS of its 48 layers, one sequence of
-    YI_SEQ tokens in bf16, YI_STEPS steps: finite losses, peak memory, the
-    launches of each step, and from the profiler the share of a step's
-    device time in each backward kernel (by its kernels' names) and in the
-    forward kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ops
+    YI_SEQ tokens in bf16: YI_STEPS steps and one more under the profiler
+    (``train_family``, run with phase 13's families), finite losses, peak
+    memory, the launches of each step (17 K1 and 8 K2, each with its
+    backward), and the profiled step's device time by kernel name
+    (``step_split``: K1's and K2's forward and backward kernels, cuBLAS's
+    products, the chunked CE, AdamW and the rest)."""
     from repro_torch.models import registry
-    from repro_torch.train import TrainConfig, init_state, make_train_step
     cfg = dataclasses.replace(registry.load_config("yi-9b"),
                               n_layers=YI_LAYERS)
-    print(f"[train] yi-9b cut to {YI_LAYERS} of 48 layers (AdamW state: "
-          f"~12 bytes a parameter)")
-    torch.cuda.reset_peak_memory_stats()
-    model, opt = init_state(cfg, 0, "cuda")
-    step_fn = make_train_step(cfg, TrainConfig())
-    losses, step_ms, launches = [], [], {}
-    for step in range(YI_STEPS):
-        batch = _synthetic(cfg, 1, YI_SEQ, step, "cuda")
-        ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if step == YI_STEPS - 1:
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=acts) as prof:
-                model, opt, m = step_fn(model, opt, batch)
-                losses.append(float(m["loss"]))
-                torch.cuda.synchronize()
-        else:
-            model, opt, m = step_fn(model, opt, batch)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        counts = ops.launch_counts()
-        check(counts["rmsnorm"] == counts["rmsnorm_bwd"] == 2 * YI_LAYERS + 1
-              and counts["flash_attention_bf16"]
-              == counts["flash_attention_bwd_bf16"] == YI_LAYERS,
-              f"yi-9b step {step}: launches {counts}")
-        launches = {k: launches.get(k, 0) + n for k, n in counts.items()}
-    check(all(math.isfinite(x) for x in losses), f"yi-9b losses {losses}")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    def named(*keys):
-        hit = [e for e in kernels if any(k in e.key for k in keys)]
-        ms = sum(e.self_device_time_total for e in hit) / 1e3
-        return dict(device_ms=ms, share_of_device_busy=ms / dev_ms,
-                    launches=sum(e.count for e in hit))
-    shares = {name: named(*keys) for name, keys in BWD_KERNEL_NAMES.items()}
-    fwd = {"rmsnorm": named("rmsnorm_rows", "rmsnorm_ring"),
-           "flash_fwd": named("flash_fwd")}
-    rec = dict(model="yi-9b", layers=YI_LAYERS, d_model=cfg.d_model,
-               batch=[1, YI_SEQ], dtype=cfg.dtype, losses=losses,
-               step_ms=step_ms, profiled_step_device_busy_ms=dev_ms,
-               backward=shares, forward_kernels=fwd, launches=launches,
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               n_params=sum(p.numel() for p in model.parameters()),
-               card=smi)
-    print(f"[train] {json.dumps(rec)}")
-    del model, opt, prof
-    torch.cuda.empty_cache()
-    return rec
+    return dict(arch="yi-9b", n_layers=YI_LAYERS, remat=False, reduced=False,
+                batch=[1, YI_SEQ], grad_batch=None, steps=YI_STEPS,
+                state_gb=state_bytes(cfg) / 1e9,
+                activations_gb=saved_activation_bytes(cfg, 1, YI_SEQ) / 1e9,
+                why=f"{YI_LAYERS} of 48 layers (AdamW's state)", card=card)
 
 
 def train_cli():
@@ -2601,83 +2584,102 @@ def kernel_split(fn, names, calls=5):
             / 1e3 / calls for n in names}
 
 
-def train_kernel_records(peaks, smi):
-    """Each kernel at the training paths' shapes, forward and backward: the
-    kernel, its plain version and one PyTorch call (forward and backward:
-    F.rms_norm, scaled_dot_product_attention), timed with CUDA events
-    beside the bound; the backward kernels (K1 and K2 in both dtypes) held
-    against their plain versions (the closed forms), whose times are kept
-    beside them."""
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+def bound_fn(peaks):
+    """``bound(nbytes, nops, rate_key) -> (ms, "bytes" | "operations")``:
+    the least time the card could take, from its data-sheet peaks (rate
+    keys: a dtype, or "tf32x3" for the fp32 route's products)."""
     bw, bf16_rate, f32_rate = peaks
     rate = {torch.bfloat16: bf16_rate, torch.float32: f32_rate,
             "tf32x3": bf16_rate / 6}
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(0)
 
     def bound(nbytes, nops, dt):
         t_bytes, t_ops = nbytes / bw * 1e3, nops / rate[dt] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops \
             else (t_ops, "operations")
+    return bound
 
-    def backward_ms(fn, inputs, dy, it):
-        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
-        out = fn(*xs)
-        return time_ms(lambda: torch.autograd.grad(out, xs, dy,
-                                                   retain_graph=True),
-                       it, flush)
 
-    records = []
-    for tag, rows, D, dt in TRAIN_NORM_SHAPES:
-        x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
-        s = (torch.randn(D, generator=g, device="cuda") * 0.1).to(dt)
-        dy = torch.randn((rows, D), generator=g, device="cuda").to(dt)
-        w = (1.0 + s.float()).to(dt)
-        tol, tol_ds = BWD_NORM_TOL[dt]
-        n = x.numel() * x.element_size()
-        dx, ds = rn.rmsnorm_bwd(x, s, dy)
-        dx_ref, ds_ref = rn.rmsnorm_backward(x, s, dy)
-        rec = dict(kernel="rmsnorm", tag=tag, shape=[rows, D], dtype=str(dt),
-                   plan=rn.plan(rows, D, dt, rn.sm_count(0)).name,
-                   backward_plan=rn.backward_plan(rows, D, dt,
-                                                  rn.sm_count(0))._asdict(),
-                   max_abs_err=max_err(rn.rmsnorm(x, s),
-                                       rn.rmsnorm_plain(x, s), tol),
-                   backward_max_abs_err=max_err(dx, dx_ref, tol),
-                   backward_dscale_max_abs_err=max_err(ds, ds_ref, tol_ds),
-                   ms=time_ms(lambda: rn.rmsnorm(x, s), 50, flush),
-                   plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, s), 50,
-                                    flush),
-                   library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6),
-                                      50, flush),
-                   backward_kernel_ms=time_ms(lambda: rn.rmsnorm_bwd(
-                       x, s, dy), 50, flush),
-                   backward_ms=time_ms(lambda: rn.rmsnorm_backward(
-                       x, s, dy, 1e-6), 50, flush),
-                   library_backward_ms=backward_ms(
-                       lambda x, w: F.rms_norm(x, (D,), w, 1e-6), (x, w),
-                       dy, 50))
-        rec["bound_ms"], rec["bound_by"] = bound(
-            2 * n + s.numel() * s.element_size(), 4 * x.numel(),
-            torch.float32)
-        # backward: read x, scale, dy; write dx, dscale
-        rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
-            3 * n + 2 * s.numel() * s.element_size(), 8 * x.numel(),
-            torch.float32)
-        records.append(rec)
-        print(f"[K1 train] {json.dumps(rec)}")
-        del x, dy, dx, dx_ref
-    for tag, (B, S, H, KV, hd), dt in TRAIN_ATTN_SHAPES:
-        q, k, v, dy = (torch.randn(shape, generator=g, device="cuda").to(dt)
-                       for shape in ((B, S, H, hd), (B, S, KV, hd),
-                                     (B, S, KV, hd), (B, S, H, hd)))
-        bf16 = dt == torch.bfloat16
-        route = fa.ROUTES[dt]
-        lse = fa.new_lse(q)
-        got = fa.flash_attention(q, k, v, causal=True, lse=lse)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        rec = dict(kernel=f"flash_attention_{route}", tag=tag,
-                   shape=[B, S, H, KV, hd], causal=True, dtype=str(dt))
+def _library_backward_ms(fn, inputs, dy, it, flush):
+    """CUDA-event ms of autograd's backward through ``fn`` (a PyTorch
+    call) on ``inputs``."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*xs)
+    return time_ms(lambda: torch.autograd.grad(out, xs, dy,
+                                               retain_graph=True), it, flush)
+
+
+def norm_train_record(tag, rows, D, dt, g, flush, bound, forward=True):
+    """K1 at (rows, D) in ``dt``, forward and backward: each kernel against
+    its plain version (the backward's the closed form), timed with CUDA
+    events beside the plain version, F.rms_norm and its backward, and the
+    bounds (``forward``: the forward's times too)."""
+    from repro_torch.kernels import rmsnorm as rn
+    x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+    s = (torch.randn(D, generator=g, device="cuda") * 0.1).to(dt)
+    dy = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+    w = (1.0 + s.float()).to(dt)
+    tol, tol_ds = BWD_NORM_TOL[dt]
+    n = x.numel() * x.element_size()
+    dx, ds = rn.rmsnorm_bwd(x, s, dy)
+    dx_ref, ds_ref = rn.rmsnorm_backward(x, s, dy)
+    rec = dict(kernel="rmsnorm", tag=tag, shape=[rows, D], dtype=str(dt),
+               plan=rn.plan(rows, D, dt, rn.sm_count(0)).name,
+               backward_plan=rn.backward_plan(rows, D, dt,
+                                              rn.sm_count(0))._asdict(),
+               max_abs_err=max_err(rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s),
+                                   tol),
+               backward_max_abs_err=max_err(dx, dx_ref, tol),
+               backward_dscale_max_abs_err=max_err(ds, ds_ref, tol_ds),
+               backward_kernel_ms=time_ms(lambda: rn.rmsnorm_bwd(x, s, dy),
+                                          50, flush),
+               backward_ms=time_ms(lambda: rn.rmsnorm_backward(
+                   x, s, dy, 1e-6), 50, flush),
+               library_backward_ms=_library_backward_ms(
+                   lambda x, w: F.rms_norm(x, (D,), w, 1e-6), (x, w), dy, 50,
+                   flush))
+    if forward:
+        rec.update(
+            ms=time_ms(lambda: rn.rmsnorm(x, s), 50, flush),
+            plain_ms=time_ms(lambda: rn.rmsnorm_plain(x, s), 50, flush),
+            library_ms=time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6), 50,
+                               flush))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * n + s.numel() * s.element_size(), 4 * x.numel(), torch.float32)
+    # backward: read x, scale, dy; write dx, dscale
+    rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
+        3 * n + 2 * s.numel() * s.element_size(), 8 * x.numel(),
+        torch.float32)
+    print(f"[K1 train] {json.dumps(rec)}")
+    return rec
+
+
+def attn_train_record(tag, shape, dt, g, flush, bound, causal=True,
+                      window=0, forward=True, split=True):
+    """K2 (the route of ``dt``) at ``shape`` = (B, S, H, KV, hd), causal or
+    not, with a causal window of ``window`` keys (0: none): the backward
+    kernel against the closed form (1e-2 / 2e-4 relative RMS each of dq, dk,
+    dv, bf16 / fp32), timed with CUDA events beside the closed form and
+    SDPA's backward (with the boolean window mask where the window bites,
+    window < S; else ``is_causal``)
+    and the bound over the pairs the mask lets through. ``forward``: the
+    forward kernel too, against its plain version and SDPA; ``split``: the
+    backward's device kernels by the profiler (ms each; the fp32 route's
+    count a call in a process of its own)."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    B, S, H, KV, hd = shape
+    q, k, v, dy = (torch.randn(dims, generator=g, device="cuda").to(dt)
+                   for dims in ((B, S, H, hd), (B, S, KV, hd),
+                                (B, S, KV, hd), (B, S, H, hd)))
+    bf16 = dt == torch.bfloat16
+    route = fa.ROUTES[dt]
+    lse = fa.new_lse(q)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    rec = dict(kernel=f"flash_attention_{route}", tag=tag,
+               shape=[B, S, H, KV, hd], causal=causal, dtype=str(dt))
+    if window:
+        rec["window"] = window
+    if forward:
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         if not bf16:
             rec["max_abs_err"] = max_err(got, want, 2e-4)
         else:
@@ -2687,25 +2689,27 @@ def train_kernel_records(peaks, smi):
             rec["max_abs_err"] = (got.float() - want.float()).abs().max() \
                 .item()
             rec["row_rel_err"] = rel
-        # the backward kernel of the route against the closed form
-        bwd = fa.BACKWARD_KERNELS[route]
-        grads = bwd(q, k, v, got, lse, dy, causal=True)
-        ref = fa.flash_attention_backward(q, k, v, dy, True)
-        rels = {n: _rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                      grads, ref)}
-        check(max(rels.values()) <= (BWD_REL_RMS if bf16
-                                     else BWD_REL_RMS_FP32),
-              f"K2 backward {tag}: relative RMS {rels}")
-        rec["backward_rel_rms"] = rels
-        rec["backward_max_abs_err"] = max(
-            (a.float() - b.float()).abs().max().item()
-            for a, b in zip(grads, ref))
-        del grads, ref
-        rec["backward_kernel_ms"] = time_ms(
-            lambda: bwd(q, k, v, got, lse, dy, causal=True), 20, flush)
+        del want
+    # the backward kernel of the route against the closed form
+    bwd = fa.BACKWARD_KERNELS[route]
+
+    def kernel():
+        return bwd(q, k, v, got, lse, dy, causal=causal, window=window)
+    grads = kernel()
+    ref = fa.flash_attention_backward(q, k, v, dy, causal, window)
+    rels = {n: _rel_rms(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                  grads, ref)}
+    check(max(rels.values()) <= (BWD_REL_RMS if bf16 else BWD_REL_RMS_FP32),
+          f"K2 backward {tag}: relative RMS {rels}")
+    rec["backward_rel_rms"] = rels
+    rec["backward_max_abs_err"] = max(
+        (a.float() - b.float()).abs().max().item()
+        for a, b in zip(grads, ref))
+    del grads, ref
+    rec["backward_kernel_ms"] = time_ms(kernel, 20, flush)
+    if split:
         rec["backward_kernels_ms"] = kernel_split(
-            lambda: bwd(q, k, v, got, lse, dy, causal=True),
-            BWD_KERNEL_NAMES[f"flash_attention_bwd_{route}"]
+            kernel, BWD_KERNEL_NAMES[f"flash_attention_bwd_{route}"]
             + (("bwd_sum_heads",) if bf16 else ()))
         if not bf16:
             # the fp32 backward is one device launch a call
@@ -2716,44 +2720,65 @@ def train_kernel_records(peaks, smi):
                   and next(iter(launched.values())) == 1,
                   f"K2 fp32 backward {tag}: device kernels a call "
                   f"{launched}, not one")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = fa.key_mask(S, S, causal, window, q.device) \
+        if window and window < S else None
 
-        def sdpa(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    # the closed form builds (B, H, S, S) fp32 tensors, 2.1 GB each at
+    # yi-9b's shape, so fewer calls there
+    big = B * H * S * S > 2**28
+    rec.update(
+        backward_ms=time_ms(lambda: fa.flash_attention_backward(
+            q, k, v, dy, causal, window), 5 if big else 20, flush),
+        library_backward_ms=_library_backward_ms(
+            sdpa, (qt, kt, vt), dy.transpose(1, 2), 20, flush))
+    if forward:
         rec.update(
-            ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20,
-                       flush),
+            ms=time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window), 20, flush),
             plain_ms=time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True), 20, flush),
-            library_ms=time_ms(lambda: sdpa(qt, kt, vt), 20, flush),
-            # the closed form builds (B, H, S, S) fp32 tensors, 2.1 GB
-            # each at yi-9b's shape, so fewer calls there
-            backward_ms=time_ms(lambda: fa.flash_attention_backward(
-                q, k, v, dy, True), 5 if B * H * S * S > 2**28 else 20,
-                flush),
-            library_backward_ms=backward_ms(sdpa, (qt, kt, vt),
-                                            dy.transpose(1, 2), 20))
-        pairs = B * H * S * (S + 1) // 2
-        es = q.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound(
-            2 * es * B * S * hd * (H + KV), 4 * hd * pairs, TC_RATE[dt])
-        # backward: read q, k, v, dy, the forward's out and LSE, write dq,
-        # dk, dv; five products (S recomputed, dP, dV, dQ, dK) over the
-        # causal pairs
-        reads = es * B * S * hd * (3 * H + 2 * KV) + 4 * B * H * S
-        bwd_bytes = reads + es * B * S * hd * (H + 2 * KV)
-        rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
-            bwd_bytes, 10 * hd * pairs, TC_RATE[dt])
-        if not bf16:
-            rec["bound_fma_ms"] = bound(2 * es * B * S * hd * (H + KV),
-                                        4 * hd * pairs, dt)[0]
-            rec["backward_bound_fma_ms"] = bound(bwd_bytes, 10 * hd * pairs,
-                                                 dt)[0]
-        records.append(rec)
-        print(f"[K2 train] {json.dumps(rec)}")
-        del q, k, v, dy, got, want
-        torch.cuda.empty_cache()
+                q, k, v, causal=causal, window=window), 20, flush),
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt), 20, flush))
+    pairs = B * H * ops.attention_pairs(S, S, causal, window)
+    rec["pairs"] = pairs
+    es = q.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * es * B * S * hd * (H + KV), 4 * hd * pairs, TC_RATE[dt])
+    # backward: read q, k, v, dy, the forward's out and LSE, write dq, dk,
+    # dv; five products (S recomputed, dP, dV, dQ, dK) over the pairs
+    reads = es * B * S * hd * (3 * H + 2 * KV) + 4 * B * H * S
+    bwd_bytes = reads + es * B * S * hd * (H + 2 * KV)
+    rec["backward_bound_ms"], rec["backward_bound_by"] = bound(
+        bwd_bytes, 10 * hd * pairs, TC_RATE[dt])
+    if not bf16:
+        rec["bound_fma_ms"] = bound(2 * es * B * S * hd * (H + KV),
+                                    4 * hd * pairs, dt)[0]
+        rec["backward_bound_fma_ms"] = bound(bwd_bytes, 10 * hd * pairs,
+                                             dt)[0]
+    print(f"[K2 train] {json.dumps(rec)}")
+    del q, k, v, dy, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_kernel_records(peaks, smi):
+    """Each kernel at the training paths' shapes, forward and backward: the
+    kernel, its plain version and one PyTorch call (forward and backward:
+    F.rms_norm, scaled_dot_product_attention), timed with CUDA events
+    beside the bound; the backward kernels (K1 and K2 in both dtypes) held
+    against their plain versions (the closed forms), whose times are kept
+    beside them."""
+    bound = bound_fn(peaks)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    records = [norm_train_record(tag, rows, D, dt, g, flush, bound)
+               for tag, rows, D, dt in TRAIN_NORM_SHAPES]
+    records += [attn_train_record(tag, shape, dt, g, flush, bound)
+                for tag, shape, dt in TRAIN_ATTN_SHAPES]
     del flush
     torch.cuda.empty_cache()
     return {(r["kernel"].split("_")[0], r["tag"]): r for r in records}
@@ -2762,20 +2787,929 @@ def train_kernel_records(peaks, smi):
 def phase9_train(peaks, smi):
     """Training on the card: the backward kernels against their plain
     versions; (a) gpt at full width and depth, 50 steps; (b) its gradients
-    against the plain path in fp32 and bf16; (c) yi-9b at full width, 8 of
-    48 layers, 2 steps, profiled; (d) launch.train's main on the reduced
-    config; then each kernel at these shapes, forward and backward."""
+    against the plain path in fp32 and bf16; (d) launch.train's main on
+    the reduced config; then each kernel at these shapes and yi-9b's,
+    forward and backward. (c), yi-9b's step, runs in phase 13's process
+    (``yi_spec``)."""
     t = time.perf_counter()
     checks = backward_kernel_checks(smi)
     gpt = train_gpt(smi)
     grads = grads_against_plain(smi)
-    yi = train_yi(smi)
     cli = train_cli()
     records = train_kernel_records(peaks, smi)
     print(f"[phase9] {json.dumps(dict(
         phase9_s=time.perf_counter() - t, card=smi))}")
-    return dict(checks=checks, gpt=gpt, grads=grads, yi=yi, cli=cli,
+    return dict(checks=checks, gpt=gpt, grads=grads, cli=cli,
                 records=records)
+
+
+# Phase 13: every family's train step on the card, the JAX package's step
+# (tests/test_arch_smoke.py:60, src/repro/train/loop.py:68) at published
+# widths in bf16 from seed 0. AdamW keeps 12 bytes a parameter (bf16
+# parameter and gradient, fp32 mu and nu: optim/adamw.py), reckoned on the
+# meta device; a config is cut to the deepest whole periods of its layer
+# pattern whose state stays within STATE_BUDGET, which leaves ACT_BUDGET of
+# the card's 80 GB for a step's activations. Where the activations the
+# step saves for its backward (reckoned on fake tensors) exceed ACT_BUDGET,
+# the blocks are rematerialized in the backward (``cfg.remat``, the JAX
+# package's per-block jax.checkpoint, which its own dry run trains with:
+# src/repro/launch/dryrun.py:84) rather than cut. kimi-k2's one published
+# layer alone exceeds the card, so it trains its reduced config (fp32,
+# K2's fp32 route) with its 384 experts and top-8.
+TRAIN_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b", "qwen2-vl-2b",
+               "whisper-medium", "gemma3-12b", "gemma3-27b", "command-r-35b",
+               "mixtral-8x7b", "kimi-k2-1t-a32b")
+ADAMW_BYTES = 12
+STATE_BUDGET = 48e9
+ACT_BUDGET = 32e9
+CARD_BYTES = 80e9
+TRAIN_STEPS = 3               # the first warm; then one more, profiled
+# (B, S) of a step: S counts qwen2-vl's 1024 patches before its 256 text
+# tokens (labels over all S); whisper's 256 tokens read 1500 frames
+TRAIN_BATCH = {"qwen2-vl-2b": (4, 1024 + S_PROMPT),
+               "whisper-medium": (B_PROMPT, S_PROMPT)}
+# the gradient check's batch (the plain attention's (B, H, S, S) scores)
+TRAIN_GRAD_BATCH = {"qwen2-vl-2b": (1, 1024 + S_PROMPT),
+                    "whisper-medium": (1, S_PROMPT)}
+TRAIN_GRAD_SEQ = 1024
+REDUCED_BATCH = (2, 64)       # the fp32 check of every reduced config
+KIMI_BATCH = (4, 128)         # kimi-k2's reduced step
+GRAD_TOL = {"bfloat16": dict(loss=1e-2, grad_norm=2e-2),
+            "float32": dict(loss=1e-5, leaf=2e-4)}
+
+
+def state_bytes(cfg):
+    """AdamW's state of ``cfg``'s parameters (abstract_params, the meta
+    device), ADAMW_BYTES a parameter."""
+    from repro_torch.models import registry
+    return ADAMW_BYTES * sum(p.numel() for p in
+                             registry.abstract_params(cfg).parameters())
+
+
+def saved_activation_bytes(cfg, B, S):
+    """The bytes a train step's forward saves for its backward at a (B, S)
+    batch: the loss run on fake tensors (nothing allocated), each storage
+    that autograd keeps counted once, the parameters' not (they are the
+    state's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import registry
+    from repro_torch.train import make_loss_fn
+    seen = {}
+    with FakeTensorMode():
+        model = registry.build_model(cfg, "cpu")
+        params = {p.untyped_storage()._cdata for p in model.parameters()}
+        for p in model.parameters():
+            p.requires_grad_(True)
+        batch = train_batch(cfg, B, S, torch.Generator(), "cpu")
+
+        def pack(t):
+            st = t.untyped_storage()
+            if st._cdata not in params:
+                seen[st._cdata] = st.nbytes()
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            make_loss_fn(cfg)(model, batch)
+    return sum(seen.values())
+
+
+def reduced_config(full):
+    """The fp32 reduced config of a published one (kimi-k2 keeps its 384
+    experts and top-8)."""
+    if full.name == "kimi-k2-1t-a32b":
+        return full.reduced(n_experts=full.n_experts, top_k=full.top_k)
+    return full.reduced()
+
+
+def train_spec(arch, card=None):
+    """Phase 13's configuration of ``arch``: a dict of the depth
+    (``n_layers``), ``remat``, ``reduced``, the step's and the gradient
+    check's (B, S) (``grad_batch`` None where the published width does not
+    fit), the reckoned state and activations and why it was cut; what
+    ``spec_config`` builds the config from."""
+    from repro_torch.models import registry
+    full = registry.load_config(arch)
+    P = len(full.pattern)
+
+    def cut(L):
+        return dataclasses.replace(full, n_layers=L)
+    if state_bytes(cut(P)) > STATE_BUDGET:
+        layer = state_bytes(cut(2 * P)) - state_bytes(cut(P))
+        cfg = reduced_config(full)
+        B, S = KIMI_BATCH
+        return dict(arch=arch, n_layers=cfg.n_layers, remat=False,
+                    reduced=True, batch=[B, S], grad_batch=None,
+                    state_gb=state_bytes(cfg) / 1e9,
+                    layer_state_gb=layer / 1e9,
+                    activations_gb=saved_activation_bytes(cfg, B, S) / 1e9,
+                    why=f"one published layer's AdamW state is "
+                        f"{layer / 1e9:.1f} GB > the card's "
+                        f"{CARD_BYTES / 1e9:.0f} GB: the reduced config "
+                        f"(fp32) with {cfg.n_experts} experts, top-"
+                        f"{cfg.top_k}", card=card)
+    L = full.n_layers
+    if state_bytes(full) > STATE_BUDGET:
+        L = max(n for n in range(P, full.n_layers + 1, P)
+                if state_bytes(cut(n)) <= STATE_BUDGET)
+    B, S = TRAIN_BATCH.get(arch, (1, S_LONG))
+    act = saved_activation_bytes(cut(L), B, S)
+    why = [] if L == full.n_layers else [
+        f"{L} of {full.n_layers} layers: AdamW's state at full depth "
+        f"{state_bytes(full) / 1e9:.1f} GB > {STATE_BUDGET / 1e9:.0f} GB"]
+    if act > ACT_BUDGET:
+        why.append(f"remat: {act / 1e9:.1f} GB of saved activations > "
+                   f"{ACT_BUDGET / 1e9:.0f} GB")
+    return dict(arch=arch, n_layers=L, remat=act > ACT_BUDGET, reduced=False,
+                batch=[B, S],
+                grad_batch=list(TRAIN_GRAD_BATCH.get(arch,
+                                                     (1, TRAIN_GRAD_SEQ))),
+                state_gb=state_bytes(cut(L)) / 1e9,
+                activations_gb=act / 1e9, why="; ".join(why) or None,
+                card=card)
+
+
+def spec_config(spec):
+    """The config ``train_spec`` describes."""
+    from repro_torch.models import registry
+    full = registry.load_config(spec["arch"])
+    if spec["reduced"]:
+        return reduced_config(full)
+    return dataclasses.replace(full, n_layers=spec["n_layers"],
+                               remat=spec["remat"])
+
+
+def train_batch(cfg, B, S, g, device="cuda"):
+    """tests/test_arch_smoke.py's training batch (its ``_small_batch``
+    layout) from ``family_batch``: the vlm family's S - vision_tokens text
+    tokens after its patch embeddings, audio's frames, and labels over all
+    S."""
+    text = S - cfg.vision_tokens if cfg.family == "vlm" else S
+    batch = family_batch(cfg, B, text, g, device)
+    batch["labels"] = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                    device=device)
+    return batch
+
+
+def expected_train_launches(cfg):
+    """The launches one train step makes, by counter (one microbatch): K1
+    and K2 take what one forward gives them (``expected_launches``: every
+    RMSNorm, 2 a layer + the final one; whisper 3 a decoder layer + 2 an
+    encoder layer + 2; every self-attention layer, local or global,
+    whisper's encoder and decoder; no cross-attention), each in the route of
+    the config's dtype, and each recorded forward launch has one backward
+    launch. With ``cfg.remat`` the blocks' forwards run again in the
+    backward (the recompute launches K1 and K2 once more; whisper remats
+    its decoder blocks only)."""
+    L, E = cfg.n_layers, cfg.encoder_layers
+    if cfg.family == "audio":
+        k1_blocks, k1_rest, k2_blocks, k2_rest = 3 * L, 2 * E + 2, L, E
+    else:
+        k1_blocks, k1_rest, k2_rest = 2 * L, 1, 0
+        k2_blocks = sum(cfg.pattern[i % len(cfg.pattern)]
+                        in ("global", "local") for i in range(L))
+    runs = 2 if cfg.remat else 1
+    route = "bf16" if cfg.dtype == "bfloat16" else "fp32"
+    other = "fp32" if route == "bf16" else "bf16"
+    return {"rmsnorm": runs * k1_blocks + k1_rest,
+            "rmsnorm_bwd": k1_blocks + k1_rest,
+            f"flash_attention_{route}": runs * k2_blocks + k2_rest,
+            f"flash_attention_bwd_{route}": k2_blocks + k2_rest,
+            f"flash_attention_{other}": 0, f"flash_attention_bwd_{other}": 0}
+
+
+def train_shapes(cfg, B, S):
+    """Where one train step of ``cfg`` on a (B, S) batch calls K1 and K2,
+    each with the backward launches it makes there a step
+    (``expected_train_launches``' backward counts split by shape): dicts of
+    ``kernel`` ("rmsnorm" or "flash_attention"), ``part`` (the layers'
+    kind, "" where a model has one), ``shape`` (K1's (rows, D), K2's
+    (B, S, H, KV, hd) with ``causal`` and ``window``), ``dtype`` and
+    ``backward``. Every RMSNorm is at the hidden width over B * S rows but
+    whisper's encoder (2 a layer + its final norm, over the frames) and
+    mamba2's out_norm (over d_inner in fp32: the SSD's output); K2 takes
+    each self-attention layer by kind, the local ones with the config's
+    window."""
+    L, E, D, dt = cfg.n_layers, cfg.encoder_layers, cfg.d_model, cfg.dtype
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+
+    def norm(part, rows, width, n, dtype=dt):
+        return dict(kernel="rmsnorm", part=part, shape=[rows, width],
+                    dtype=dtype, backward=n)
+
+    def attn(part, S, causal, window, n):
+        return dict(kernel="flash_attention", part=part,
+                    shape=[B, S, *heads], causal=causal, window=window,
+                    dtype=dt, backward=n)
+    if cfg.family == "audio":
+        return [norm("encoder", B * cfg.encoder_frames, D, 2 * E + 1),
+                norm("decoder", B * S, D, 3 * L + 1),
+                attn("encoder", cfg.encoder_frames, False, 0, E),
+                attn("decoder", S, True, 0, L)]
+    if cfg.family == "ssm":
+        return [norm("", B * S, D, L + 1),
+                norm("out_norm", B * S, cfg.d_inner, L, "float32")]
+    kinds = collections.Counter(cfg.pattern[i % len(cfg.pattern)]
+                                for i in range(L))
+    both = "local" in kinds and "global" in kinds
+    return [norm("", B * S, D, 2 * L + 1)] + [
+        attn(kind if both or kind == "local" else "", S, True,
+             cfg.window if kind == "local" else 0, kinds[kind])
+        for kind in ("local", "global") if kind in kinds]
+
+
+# each arch's name in the tags of phase 13's kernel records
+TRAIN_TAGS = {"mamba2-1.3b": "mamba2", "recurrentgemma-2b": "recurrentgemma",
+              "qwen2-vl-2b": "qwen2_vl", "whisper-medium": "whisper",
+              "gemma3-12b": "gemma3_12b", "gemma3-27b": "gemma3_27b",
+              "command-r-35b": "command_r", "mixtral-8x7b": "mixtral",
+              "kimi-k2-1t-a32b": "kimi_reduced"}
+
+
+def shape_tag(arch, part):
+    return "_".join(filter(None, (TRAIN_TAGS[arch], part, "train")))
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Record each ``moe.route`` call's choice: a (T, E) bool of the
+    experts each token was sent to, in call order."""
+    from repro_torch.models import moe
+    real, calls = moe.route, []
+
+    def route(router, cfg, xt):
+        r = real(router, cfg, xt)
+        chosen = torch.zeros((xt.shape[0], cfg.n_experts), dtype=torch.bool,
+                             device=xt.device)
+        chosen[r["st"], r["se"]] = True
+        calls.append(chosen)
+        return r
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+# A step's device kernels by name: K1's and K2's (forward, backward) and
+# cuBLAS's products; the chunked CE and AdamW's update by profiler range
+STEP_KERNELS = (("k1_forward", ("rmsnorm_rows", "rmsnorm_ring")),
+                ("k1_backward", ("rmsnorm_bwd",)),
+                ("k2_forward", ("flash_fwd_sm90", "flash_fwd_fp32")),
+                ("k2_backward", ("bwd_prologue", "bwd_sum_heads",
+                                 "flash_bwd_sm90", "flash_bwd_dq_sm90",
+                                 "flash_bwd_fp32")),
+                ("cublas_gemm", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+# step_ranges' names: the profiler also puts each range on the device's
+# timeline (a user annotation), which is no kernel
+STEP_RANGES = ("ce", "adamw")
+
+
+def kernel_class(name):
+    low = name.lower()
+    for cls, keys in STEP_KERNELS:
+        if any(k in low for k in keys):
+            return cls
+    return "rest"
+
+
+class _RangeOpen(torch.autograd.Function):
+    """Identity whose backward opens ``rf`` (a profiler range): on a CE
+    piece's output, where the piece's backward starts."""
+    @staticmethod
+    def forward(ctx, x, rf):
+        ctx.rf = rf
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.rf.__enter__()
+        return g, None
+
+
+class _RangeClose(torch.autograd.Function):
+    """Identity whose backward closes ``rf``: on a CE piece's input, where
+    the piece's backward (the recompute included) ends."""
+    @staticmethod
+    def forward(ctx, x, rf):
+        ctx.rf = rf
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.rf.__exit__(None, None, None)
+        return g, None
+
+
+@contextlib.contextmanager
+def step_ranges():
+    """Profiler ranges around a train step's chunked CE (each piece's
+    forward, and its backward with the checkpoint's recompute: autograd
+    runs a piece's backward nodes in a row, the later piece first) and
+    AdamW's update, named "ce" and "adamw"."""
+    from torch.profiler import record_function
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    real_piece, real_update = loop._ce_piece, adamw.update
+
+    def piece(cfg, tcfg, w, xc, lc):
+        rf = record_function("ce")
+        xc = _RangeClose.apply(xc, rf)
+        with record_function("ce"):
+            nll, cnt, z = real_piece(cfg, tcfg, w, xc, lc)
+        return _RangeOpen.apply(nll, rf), cnt, z
+
+    def update(*a, **k):
+        with record_function("adamw"):
+            return real_update(*a, **k)
+    loop._ce_piece, adamw.update = piece, update
+    try:
+        yield
+    finally:
+        loop._ce_piece, adamw.update = real_piece, real_update
+
+
+def step_split(prof, wall_ms):
+    """A profiled step's device time: busy ms (every device kernel's), the
+    top 10 kernels by self time, and a partition of busy time into K1's and
+    K2's forward and backward kernels, the chunked CE and AdamW (the
+    kernels inside their ranges' spans on the device's timeline, products
+    included), cuBLAS's other products and the rest. Checks that the
+    profile holds one device kernel for each launch call it recorded (a
+    session that dropped events would not: in one process the profiler
+    has lost kernels after its first session) and that no call went
+    through the kernels' custom ops (a DTensor's path)."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    spans = {name: [(e.time_range.start, e.time_range.end)
+                    for e in events if e.name == name]
+             for name in STEP_RANGES}
+    check(all(spans.values()), f"a range left no span on the device: "
+          f"{ {k: len(v) for k, v in spans.items()} }")
+    dev = [e for e in events if e.name not in STEP_RANGES]
+    n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    launch_calls = sum(e.count for e in avgs if e.device_type == DeviceType.CPU
+                       and "LaunchKernel" in e.key)
+    check(n_kernels == launch_calls,
+          f"the profile holds {n_kernels} device kernels for {launch_calls} "
+          f"launch calls: events were dropped")
+    custom = sum(e.count for e in avgs if e.key.startswith("repro_torch::"))
+    check(custom == 0, f"{custom} calls went through the kernels' custom ops")
+    classes = [c for c, _ in STEP_KERNELS] + ["rest"]
+    parts = dict.fromkeys(classes + ["chunked_ce", "adamw"], 0.0)
+    ranged = {name: dict.fromkeys(classes, 0.0) for name in STEP_RANGES}
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        cls = kernel_class(e.name)
+        where = next((name for name, sp in spans.items()
+                      if any(a <= e.time_range.start < b for a, b in sp)),
+                     None)
+        if where:
+            ranged[where][cls] += ms
+        parts[{"ce": "chunked_ce", "adamw": "adamw"}.get(where, cls)] += ms
+    busy = sum(parts.values())
+    # one stream: a range's kernels fit in its span
+    for name, sp in spans.items():
+        check(sum(ranged[name].values()) <= sum(b - a for a, b in sp) / 1e3
+              * (1 + 1e-6), f"{name}'s kernels overrun its span")
+    top = sorted((e for e in avgs if e.device_type != DeviceType.CPU
+                  and e.key not in STEP_RANGES),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
+        device_kernels=n_kernels, launch_calls=launch_calls,
+        parts_ms=parts, parts_share={k: v / busy for k, v in parts.items()},
+        ce_ranged_ms=ranged["ce"], adamw_ranged_ms=ranged["adamw"],
+        spans={k: len(v) for k, v in spans.items()},
+        top10=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
+                    count=e.count) for e in top])
+
+
+def rmsnorm_plain_other(x, scale, eps=1e-6):
+    """``rmsnorm_plain`` rounded otherwise: x / sqrt(mean(x^2) + eps) where
+    it multiplies by the rsqrt. The same function; the plain path through
+    it against the plain path gives the model's own rounding floor."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf / torch.sqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def _grad_gap(grads, m, ref, mr):
+    """How far ``grads`` (and their loss) lie from ``ref``: the loss's and
+    the gradient norm's relative difference, the whole gradient's relative
+    difference and the worst leaf's relative RMS."""
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                          for g in grads.values())).item()
+    norm_ref = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                              for g in ref.values())).item()
+    diff = torch.sqrt(sum(torch.sum((grads[n].float() - ref[n].float()) ** 2)
+                          for n in ref)).item()
+    leaf = max((_rel_rms(grads[n], ref[n]), n) for n in ref)
+    return dict(loss=float(m["loss"]), plain_loss=float(mr["loss"]),
+                loss_rel=abs(float(m["loss"]) - float(mr["loss"]))
+                / abs(float(mr["loss"])), grad_norm=norm,
+                plain_grad_norm=norm_ref,
+                grad_norm_rel=abs(norm - norm_ref) / norm_ref,
+                grad_diff_rel=diff / norm_ref, worst_leaf_rel_rms=leaf[0],
+                worst_leaf=leaf[1])
+
+
+# Where the bf16 gradient cannot be held to the plain path's: mamba2's at
+# 48 layers is chaotic in its forward (``rounding_draws``). Every bf16
+# path lies further from the fp32 plain path's gradient at the same
+# weights and batch (the witness) than the witness's own norm, and paths
+# that compute the same function rounded otherwise differ from the
+# witness's norm by several percent on one batch and by up to 2x on
+# another, the kernels' path among them; the forward kernel's outputs
+# equal the plain version's but for a few in a million, rounded up as
+# often as down. Given one forward, the backward is stable, so the
+# backward kernel is held to the norm limit under the plain path's
+# forward (``kernel_backward_norm``), the whole path by its loss, and the
+# fp32 kernels' path at the same width and batch to the fp32 plain path
+# by SPLIT_FP32_GATES; the witness's distances are recorded.
+SPLIT_ARCHS = ("mamba2-1.3b",)
+SPLIT_FP32_GATES = dict(loss=1e-5, grad_norm=1e-3)
+
+
+class _PlainForwardKernelBackward(torch.autograd.Function):
+    """The plain RMSNorm's forward with K1's backward kernel."""
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        from repro_torch.kernels import rmsnorm as rn
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rn.rmsnorm_plain(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import rmsnorm as rn
+        x, scale = ctx.saved_tensors
+        dx, dscale = rn.rmsnorm_bwd(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+def kernel_backward_norm(x, scale, eps=1e-6):
+    return _PlainForwardKernelBackward.apply(x, scale, eps)
+
+
+def _rel_dist(grads, ref):
+    """||grads - ref|| / ||ref|| over every leaf, in fp32."""
+    diff = sum(torch.sum((grads[n].float() - ref[n].float()) ** 2)
+               for n in ref)
+    return math.sqrt(diff / sum(torch.sum(r.float() ** 2)
+                                for r in ref.values()))
+
+
+def grads_check(model, cfg, batch, what, gates=None, witness=None,
+                keep=False, split=False):
+    """The gradients of one batch through the kernels against autograd
+    through the plain versions on the card (``plain_kernels``), the same
+    weights, held to ``gates`` (by default GRAD_TOL: bf16 the loss within
+    1e-2 and the gradient's norm within 2e-2 relative, fp32 the loss
+    within 1e-5 and every leaf within 2e-4 relative RMS); the kernels'
+    path launches exactly ``expected_train_launches``, the plain path
+    nothing. Beside it, the model's own rounding floor: the plain path
+    with the RMSNorm rounded otherwise against the plain path. With
+    ``split``, the plain path's forward with K1's backward kernel
+    (``kernel_backward_norm``) against the plain path too, its norm the
+    gate "backward_grad_norm"; with ``witness`` (fp32 gradients at the same
+    weights and batch) each path's distance from it. For MoE the share of
+    tokens whose experts differ between the two paths is recorded. Returns
+    the record, and with ``keep`` the plain path's gradients too."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_grad_fn
+    gates = gates or GRAD_TOL[cfg.dtype]
+    grad_fn = make_grad_fn(cfg)
+    want = expected_train_launches(cfg)
+    ops.reset_launch_counts()
+    with routing_log() as routed:
+        grads, m = grad_fn(model, batch)
+    counts = ops.launch_counts()
+    check(all(counts[k] == n for k, n in want.items()),
+          f"{what}: the gradient's launches {counts}, not {want}")
+    with plain_kernels(), routing_log() as routed_ref:
+        ref, mr = grad_fn(model, batch)
+    with plain_kernels(rmsnorm_plain_other):
+        other, mo = grad_fn(model, batch)
+    check(ops.launch_counts() == counts, f"{what}: the plain path launched "
+          f"a kernel")
+    rec = dict(dtype=cfg.dtype, batch=list(batch["labels"].shape),
+               **_grad_gap(grads, m, ref, mr), launches=counts, gates=gates,
+               rounding_floor=_grad_gap(other, mo, ref, mr))
+    reading = {"loss": rec["loss_rel"], "grad_norm": rec["grad_norm_rel"],
+               "leaf": rec["worst_leaf_rel_rms"]}
+    if split:
+        ops.reset_launch_counts()
+        with plain_kernels(kernel_backward_norm):
+            kb, mkb = grad_fn(model, batch)
+        kb_counts = ops.launch_counts()
+        check(kb_counts["rmsnorm_bwd"] == want["rmsnorm_bwd"]
+              and kb_counts["rmsnorm"] == 0, f"{what}: the plain forward "
+              f"with the backward kernel launched {kb_counts}")
+        rec["backward_kernel"] = _grad_gap(kb, mkb, ref, mr)
+        reading["backward_grad_norm"] = \
+            rec["backward_kernel"]["grad_norm_rel"]
+        del kb
+    if witness is not None:
+        norm = math.sqrt(sum(torch.sum(w.float() ** 2)
+                             for w in witness.values()))
+        rec["witness"] = {
+            name: dict(grad_diff_rel=_rel_dist(gs, witness),
+                       grad_norm_rel=math.sqrt(sum(
+                           torch.sum(x.float() ** 2) for x in gs.values()))
+                       / norm - 1)
+            for name, gs in (("kernels", grads), ("plain", ref),
+                             ("plain_other", other))}
+    del grads, other
+    torch.cuda.empty_cache()
+    if routed:
+        check(len(routed) == len(routed_ref), f"{what}: route calls")
+        rec["route_calls"] = len(routed)
+        rec["flipped_token_share"] = sum(
+            a.ne(b).any(-1).float().mean().item()
+            for a, b in zip(routed, routed_ref)) / len(routed)
+        rec["calls_with_a_flip"] = sum(bool(a.ne(b).any())
+                                       for a, b in zip(routed, routed_ref))
+    check(all(reading[k] <= v for k, v in gates.items()),
+          f"{what}: {cfg.dtype} gradients against the plain path: {rec}")
+    return (rec, ref) if keep else rec
+
+
+def train_family(spec):
+    """One family's phase-13 run: the config ``spec`` describes at seed
+    0, ``spec["steps"]`` steps through train.make_train_step then one more
+    under the profiler, each with exactly ``expected_train_launches`` and a
+    finite loss; step ms (median of the steps after the first), tokens/s,
+    peak memory; the profiled step's split (``step_split``); the launches
+    by shape (``train_shapes``); then the gradients against the plain
+    path, bf16 at the published width (``grad_batch``; SPLIT_ARCHS with
+    the backward kernel split out, beside the fp32 witness) and fp32 at
+    the reduced config
+    (``grads_check``). Returns its record."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import registry
+    from repro_torch.train import (TrainConfig, init_state, make_train_step,
+                                   trainable)
+    t_run = time.perf_counter()
+    cfg = spec_config(spec)
+    full = registry.load_config(spec["arch"])
+    B, S = spec["batch"]
+    want = expected_train_launches(cfg)
+    shapes = train_shapes(cfg, B, S)
+    for kernel, bwd in (("rmsnorm", "rmsnorm_bwd"), (
+            "flash_attention",
+            f"flash_attention_bwd_{fa.ROUTES[cfg.torch_dtype]}")):
+        check(sum(s["backward"] for s in shapes if s["kernel"] == kernel)
+              == want[bwd], f"{spec['arch']}: train_shapes {shapes} do not "
+              f"sum to {want}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = init_state(cfg, 0, "cuda")
+    step_fn = make_train_step(cfg, TrainConfig())
+    losses, step_ms, launches = [], [], dict.fromkeys(want, 0)
+    for step in range(spec["steps"] + 1):
+        batch = train_batch(cfg, B, S, g)
+        last = step == spec["steps"]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            if last:
+                stack.enter_context(step_ranges())
+                prof = stack.enter_context(profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            t = time.perf_counter()
+            model, opt, m = step_fn(model, opt, batch)
+            losses.append(float(m["loss"]))       # waits for the step
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = ops.launch_counts()
+        check(all(counts[k] == n for k, n in want.items()),
+              f"{spec['arch']} step {step}: launches {counts}, a step makes "
+              f"{want}")
+        for k in want:
+            launches[k] += counts[k]
+    print("[phase13] timed", flush=True)     # the next process may start
+    check(all(math.isfinite(x) for x in losses),
+          f"{spec['arch']}: losses {losses}")
+    timed = sorted(step_ms[1:spec["steps"]])
+    median = timed[len(timed) // 2] if len(timed) % 2 \
+        else sum(timed[len(timed) // 2 - 1:len(timed) // 2 + 1]) / 2
+    rec = dict(arch=spec["arch"], family=cfg.family, layers=cfg.n_layers,
+               full_layers=full.n_layers, remat=cfg.remat,
+               reduced=spec["reduced"], why=spec["why"], dtype=cfg.dtype,
+               batch=[B, S], n_params=sum(p.numel()
+                                          for p in model.parameters()),
+               state_gb=spec["state_gb"],
+               activations_gb=spec["activations_gb"], losses=losses,
+               step_ms=step_ms, median_step_ms=median,
+               tokens_per_s=B * S / median * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step=want, launches=launches,
+               shapes=[dict(s, launches=s["backward"] * (spec["steps"] + 1))
+                       for s in shapes],
+               profile=step_split(prof, step_ms[-1]))
+    check(rec["peak_memory_gb"] * 1e9 < CARD_BYTES,
+          f"{spec['arch']}: peak {rec['peak_memory_gb']} GB")
+    del opt, prof
+    torch.cuda.empty_cache()
+    grads = rec["grads"] = {}
+    if spec["grad_batch"]:
+        batch = train_batch(cfg, *spec["grad_batch"], g)
+        split = spec["arch"] in SPLIT_ARCHS
+        witness, gates = None, None
+        if split:
+            # the fp32 witness: the same weights and batch in fp32
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            model32 = copy.deepcopy(model).float()
+            model32.cfg = cfg32
+            grads["float32_published"], witness = grads_check(
+                model32, cfg32, {k: v.float() if v.is_floating_point()
+                                 else v for k, v in batch.items()},
+                f"{spec['arch']} float32 at the published width",
+                gates=SPLIT_FP32_GATES, keep=True)
+            del model32
+            gates = dict(loss=GRAD_TOL[cfg.dtype]["loss"],
+                         backward_grad_norm=GRAD_TOL[cfg.dtype]["grad_norm"])
+        grads[cfg.dtype] = grads_check(model, cfg, batch,
+                                       f"{spec['arch']} {cfg.dtype}",
+                                       gates=gates, witness=witness,
+                                       split=split)
+        del witness
+    del model
+    torch.cuda.empty_cache()
+    small = reduced_config(full)
+    model = trainable(registry.init_params(small, 0, "cuda"))
+    grads["float32"] = grads_check(
+        model, small, train_batch(small, *(KIMI_BATCH if spec["reduced"]
+                                           else REDUCED_BATCH), g),
+        f"{spec['arch']} reduced float32")
+    del model
+    rec.update(seconds=time.perf_counter() - t_run, card=spec["card"])
+    return rec
+
+
+def rounding_draws(arch="mamba2-1.3b", trials=2):
+    """How far rounding alone moves ``arch``'s bf16 gradient at its phase-13
+    config: after ``train_family``'s steps from seed 0, on ``trials``
+    gradient batches, the fp32 plain path's gradient (the witness) and in
+    bf16 the plain path, the same function rounded otherwise (its variance
+    summed in reverse, in fp64; ``rmsnorm_plain_other``; its product in
+    another order) and the kernels' path, each one's distance from the
+    witness over the witness's norm and its norm's offset; and the forward
+    kernel's outputs against the plain version's on those activations
+    (outputs that differ, and of them those of greater magnitude), by
+    dtype. One ``[draws]`` JSON line a trial.
+
+        python -c "import chip_smoke as c; c.rounding_draws()"
+    """
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.train import (TrainConfig, init_state, make_grad_fn,
+                                   make_loss_fn, make_train_step)
+    spec = train_spec(arch)
+    cfg = spec_config(spec)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    model, opt = init_state(cfg, 0, "cuda")
+    step_fn = make_train_step(cfg, TrainConfig())
+    for _ in range(TRAIN_STEPS + 1):
+        model, opt, _ = step_fn(model, opt, train_batch(cfg, *spec["batch"],
+                                                        g))
+    del opt
+    torch.cuda.empty_cache()
+
+    def otherwise(var=None, regroup=False):
+        def norm(x, scale, eps=1e-6):
+            xf = x.float()
+            v = var(xf) if var else xf.square().mean(dim=-1, keepdim=True)
+            w = 1.0 + scale.float()
+            y = xf * (torch.rsqrt(v + eps) * w) if regroup \
+                else xf * torch.rsqrt(v + eps) * w
+            return y.to(x.dtype)
+        return norm
+    agree = {}
+
+    def spy(x, scale, eps=1e-6):
+        with torch.no_grad():
+            k = rn.rmsnorm(x, scale, eps)
+            p = rn.rmsnorm_plain(x, scale, eps)
+            d = k.ne(p)
+            n = agree.setdefault(str(x.dtype), [0, 0, 0])
+            n[0] += int(d.sum())
+            n[1] += int((k.float().abs() > p.float().abs())[d].sum())
+            n[2] += k.numel()
+        return rn.rmsnorm_plain(x, scale, eps)
+    variants = {"plain": rn.rmsnorm_plain,
+                "reverse_sum": otherwise(lambda xf: xf.flip(-1).square()
+                                         .mean(dim=-1, keepdim=True)),
+                "fp64_sum": otherwise(lambda xf: xf.double().square()
+                                      .mean(dim=-1, keepdim=True).float()),
+                "plain_other": rmsnorm_plain_other,
+                "regrouped": otherwise(regroup=True), "kernels": None}
+    grad_fn = make_grad_fn(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for trial in range(trials):
+        batch = train_batch(cfg, *spec["grad_batch"], g)
+        model32 = copy.deepcopy(model).float()
+        model32.cfg = cfg32
+        with plain_kernels():
+            witness, mw = make_grad_fn(cfg32)(model32, {
+                k: v.float() if v.is_floating_point() else v
+                for k, v in batch.items()})
+        del model32
+        norm = math.sqrt(sum(torch.sum(w ** 2) for w in witness.values()))
+        rec = dict(arch=arch, trial=trial, witness_loss=float(mw["loss"]))
+        for name, fn in variants.items():
+            with plain_kernels(fn) if fn else contextlib.nullcontext():
+                gs, m = grad_fn(model, batch)
+            rec[name] = dict(loss=float(m["loss"]),
+                             grad_diff_rel=_rel_dist(gs, witness),
+                             grad_norm_rel=math.sqrt(sum(
+                                 torch.sum(x.float() ** 2)
+                                 for x in gs.values())) / norm - 1)
+            del gs
+            torch.cuda.empty_cache()
+        with torch.no_grad(), plain_kernels(spy):
+            make_loss_fn(cfg)(model, batch)
+        rec["forward_kernel_differs"] = dict(agree)
+        agree.clear()
+        print(f"[draws] {json.dumps(rec)}", flush=True)
+        del witness
+        torch.cuda.empty_cache()
+
+
+def warm_up(spec):
+    """One train step of the family's reduced config in the spec's dtype:
+    the process's first CUDA work (the libraries' and kernels' loading,
+    ~8 s on the H100), done while the process before it checks its
+    gradients."""
+    from repro_torch.models import registry
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = dataclasses.replace(
+        reduced_config(registry.load_config(spec["arch"])),
+        dtype=spec_config(spec).dtype)
+    model, opt = init_state(cfg, 0, "cuda")
+    make_train_step(cfg, TrainConfig())(model, opt, train_batch(
+        cfg, *REDUCED_BATCH, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def train_worker(arch, card):
+    """``--train-worker ARCH CARD``: reckon ``arch``'s spec (yi-9b's phase-9
+    step, or ``train_spec``), warm up (``warm_up``), then on a line of
+    standard input ``train_family``, printing its record (or the error of
+    a failed check, or of running out of memory) as a ``[phase13]``
+    line."""
+    spec = yi_spec(card) if arch == "yi-9b" else dict(train_spec(arch, card),
+                                                      steps=TRAIN_STEPS)
+    print(f"[phase13] spec {json.dumps(spec)}", flush=True)
+    warm_up(spec)
+    sys.stdin.readline()
+    try:
+        rec = train_family(spec)
+    except RuntimeError as e:           # torch.OutOfMemoryError is one too
+        rec = dict(arch=arch, error=f"{type(e).__name__}: {e}", card=card)
+    print(f"[phase13] {json.dumps(rec)}", flush=True)
+
+
+def run_train_workers(archs, card, timeout=600):
+    """``train_worker`` of each arch in a process of its own (its profiler
+    session is the process's first: later ones have lost kernels, and its
+    memory is all the card's), one at a time on the card. Each process
+    starts (interpreter, imports, its spec, CUDA context, warm-up) once the
+    one before it has made its timed and profiled steps, so that nothing
+    else runs on the host or the card while a step is timed, and runs once
+    that one has exited (its memory freed). Their output is echoed;
+    returns {arch: record}, failing on any family's error."""
+    import threading
+
+    def start(arch):
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--train-worker",
+             arch, card], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def go(proc):
+        if proc.poll() is None:
+            try:
+                proc.stdin.write("go\n")
+                proc.stdin.flush()
+            except BrokenPipeError:     # it has died: its exit code says so
+                pass
+    runs, errors, procs = {}, [], [start(archs[0])]
+    try:
+        go(procs[0])
+        for i, arch in enumerate(archs):
+            proc, more = procs[i], i + 1 < len(archs)
+            watchdog = threading.Timer(timeout, proc.kill)
+            watchdog.start()
+            last = ""
+            for line in proc.stdout:
+                print(line, end="")
+                if line.startswith("[phase13] timed") and more:
+                    procs.append(start(archs[i + 1]))
+                elif line.startswith("[phase13] {"):
+                    last = line
+            proc.wait()
+            watchdog.cancel()
+            if more:
+                if len(procs) == i + 1:     # it ended before its steps did
+                    procs.append(start(archs[i + 1]))
+                go(procs[i + 1])
+            if proc.returncode or not last:
+                errors.append(f"{arch}: the worker exited "
+                              f"{proc.returncode} without a record")
+                continue
+            rec = runs[arch] = json.loads(last.split(" ", 1)[1])
+            if "error" in rec:
+                errors.append(f"{arch}: {rec['error']}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not errors, "; ".join(errors))
+    return runs
+
+
+def train13_kernel_records(peaks, runs):
+    """Each backward kernel at every shape of each family's training step
+    (the ``shapes`` of its run, from ``train_shapes``;
+    ``norm_train_record``, ``attn_train_record``: against the closed form,
+    timed beside it, the library's backward and the bound), with the
+    launches the run made at that shape; and K2 at kimi-k2's published
+    attention (hd 112 on the hd-128 tile), which no step gives: timed
+    alone."""
+    from repro_torch.models import registry
+    bound = bound_fn(peaks)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    todo = [(arch, shape_tag(arch, s["part"]), s)
+            for arch in TRAIN_ARCHS for s in runs[arch]["shapes"]]
+    todo += [(None, "kimi_published", dict(s, launches=0)) for s in
+             train_shapes(registry.load_config("kimi-k2-1t-a32b"), 1, S_LONG)
+             if s["kernel"] == "flash_attention"]
+    records = []
+    for arch, tag, s in todo:
+        dt = getattr(torch, s["dtype"])
+        if s["kernel"] == "rmsnorm":
+            rec = norm_train_record(tag, *s["shape"], dt, g, flush, bound,
+                                    forward=False)
+        else:
+            rec = attn_train_record(tag, tuple(s["shape"]), dt, g, flush,
+                                    bound, causal=s["causal"],
+                                    window=s["window"], forward=False,
+                                    split=False)
+        records.append(dict(rec, path=arch, launches=s["launches"]))
+    del flush
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase13_train(peaks, smi):
+    """yi-9b's phase-9 step and every family's train step on the card,
+    each in a process of its own (``run_train_workers``), then the
+    backward kernels at the families' training shapes."""
+    t = time.perf_counter()
+    runs = run_train_workers(("yi-9b",) + TRAIN_ARCHS, smi)
+    records = train13_kernel_records(peaks, runs)
+    print(f"[phase13] {json.dumps(dict(
+        phase13_s=time.perf_counter() - t, card=smi))}")
+    return dict(runs=runs, records=records)
+
+
+def train13_entries(records, smi):
+    """The kernels line's entries of phase 13's records: each backward
+    kernel at each family's training shape, with the launches the family's
+    steps made at that shape (kimi-k2's published attention is timed
+    alone); ms the kernel's, plain_ms the closed form's, library_ms the
+    PyTorch call's backward."""
+    entries = []
+    for rec in records:
+        fwd = rec["kernel"]
+        bwd = "rmsnorm_bwd" if fwd == "rmsnorm" \
+            else fwd.replace("attention_", "attention_bwd_")
+        src = "rmsnorm.cu" if fwd == "rmsnorm" else \
+            f"{BF16_BWD_LIB if 'bf16' in fwd else FP32_BWD_LIB}.cu"
+        arch = rec["path"]
+        entries.append(dict(
+            name=f"{bwd}@{rec['tag']}", route="cuda",
+            source=f"src/repro_torch/csrc/{src}",
+            replaces="src/repro/kernels/rmsnorm.py:21"
+            if fwd == "rmsnorm" else "src/repro/kernels/flash_attention.py:26",
+            launches=rec["launches"],
+            path=f"train {arch}" if arch else "timed alone",
+            max_abs_err=rec["backward_max_abs_err"],
+            ms=rec["backward_kernel_ms"], plain_ms=rec["backward_ms"],
+            bound_ms=rec["backward_bound_ms"],
+            bound_by=rec["backward_bound_by"],
+            library_ms=rec["library_backward_ms"], shape=rec["shape"],
+            dtype=rec["dtype"],
+            **{k: rec[k] for k in ("causal", "window") if k in rec},
+            **fma_bound(rec, "backward_"), card=smi))
+    return entries
 
 
 def _free_port() -> int:
@@ -2939,6 +3873,9 @@ def main(argv=()):
         return 2
     if list(argv) == ["--windowed-profiles"]:
         return windowed_profiles()
+    if len(argv) == 3 and argv[0] == "--train-worker":
+        train_worker(*argv[1:])
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
@@ -2957,6 +3894,7 @@ def main(argv=()):
     gemma12 = phase3_windowed(smi)
     families = phase6_families()
     train = phase9_train(peaks, smi)
+    families_train = phase13_train(peaks, smi)
     inproc, inproc_s, fires = phase4_verify()
     phase12_audit(inproc, smi, fires)
     drivers = phase11_drivers(inproc, smi)
@@ -3060,7 +3998,8 @@ def main(argv=()):
     # (bf16), launch.train's reduced default (fp32)
     recs = train["records"]
     launched = {"gpt_train": train["gpt"]["launches"],
-                "train_reduced": train["cli"], "yi9b_train": train["yi"]["launches"],
+                "train_reduced": train["cli"],
+                "yi9b_train": families_train["runs"]["yi-9b"]["launches"],
                 "gpt_100m": drivers["train_gpt_100m"]["launches"]}
     for name, key, counter in (
             ("rmsnorm@gpt_train", ("rmsnorm", "gpt_train"), "rmsnorm"),
@@ -3115,6 +4054,8 @@ def main(argv=()):
             bound_by=rec["backward_bound_by"],
             library_ms=rec["library_backward_ms"], shape=rec["shape"],
             dtype=rec["dtype"], **fma_bound(rec, "backward_"), card=smi))
+    # the backward kernels at each family's training shapes (phase 13)
+    kernels += train13_entries(families_train["records"], smi)
     # K1 on serve_decode's path (phase 11): gemma3-12b's decode rows
     rec = next(r for r in records if r["kernel"] == "rmsnorm"
                and r["shape"] == [B_PROMPT, GEMMA12_D])

@@ -82,11 +82,15 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     dA = dtc.to(f32) * A                            # (b,c,q,h) negative
     cs = torch.cumsum(dA, dim=2)                    # within-chunk cumsum
 
-    # intra-chunk (quadratic within the chunk)
-    Lmat = torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :])  # (b,c,q,t,h)
+    # intra-chunk (quadratic within the chunk). The segment sums above the
+    # diagonal are masked before the exp, not after as the JAX package
+    # does: there they grow with the chunk's decay, and where exp overflows
+    # to inf its gradient, 0 * inf, is NaN. The values are the same.
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=x.device).tril()
-    Lmat = torch.where(tri[None, None, :, :, None], Lmat, 0.0)
+    Lmat = torch.exp(torch.where(tri[None, None, :, :, None],
+                                 cs[:, :, :, None, :] - cs[:, :, None, :, :],
+                                 float("-inf")))           # (b,c,q,t,h)
     CB = torch.einsum("bcqn,bctn->bcqt", Cc, Bc)    # model dtype, as in JAX
     y_diag = torch.einsum("bcqt,bcqth,bcthp->bcqhp", CB.to(f32), Lmat, xdt)
 

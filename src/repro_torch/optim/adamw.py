@@ -16,6 +16,14 @@ from dataclasses import dataclass
 
 import torch
 
+from ..sharding.specs import is_dtensor
+
+# A leaf's update in fp32 makes a few temporaries of the leaf's size; a leaf
+# of more elements than this is updated a run of rows at a time, so that
+# they stay within ~5 x 256 MB (a 256k-row embedding's would be ~40 GB).
+# Each element's arithmetic is the same either way.
+UPDATE_CHUNK = 1 << 26
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -57,8 +65,9 @@ def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     step = state["step"] + 1
     scale = None
     if cfg.clip_norm:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads.values()))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(gp.float()))
+                               for g in grads.values()
+                               for (gp,) in _pieces(g)))
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     else:
         gnorm = torch.zeros((), device=step.device)
@@ -67,20 +76,33 @@ def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
     lr = schedule(cfg, step)
-    # one parameter at a time: a leaf's fp32 temporaries are freed before
-    # the next one's are made
+    # one parameter (or run of its rows) at a time: its fp32 temporaries
+    # are freed before the next one's are made
     for n, p in params.items():
-        g = grads[n].float()
-        if scale is not None:
-            g = g * scale
-        m = state["mu"][n]
-        v = state["nu"][n]
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.float()
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        for pp, gp, m, v in _pieces(p, grads[n], state["mu"][n],
+                                    state["nu"][n]):
+            g = gp.float()
+            if scale is not None:
+                g = g * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            pf = pp.float()
+            if cfg.weight_decay:
+                delta = delta + cfg.weight_decay * pf
+            pp.copy_((pf - lr * delta).to(pp.dtype))
     state["step"] = step
     return params, state, gnorm
+
+
+def _pieces(*ts):
+    """``ts`` (tensors of one shape) whole, or, past UPDATE_CHUNK elements,
+    as views of runs of their leading rows of at most UPDATE_CHUNK elements
+    (or one row); a DTensor is left whole, as its shards are."""
+    t = ts[0]
+    if t.numel() <= UPDATE_CHUNK or t.dim() == 0 or is_dtensor(t):
+        yield ts
+        return
+    rows = max(1, UPDATE_CHUNK * t.shape[0] // t.numel())
+    for i in range(0, t.shape[0], rows):
+        yield tuple(x[i:i + rows] for x in ts)

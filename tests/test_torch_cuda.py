@@ -9,6 +9,8 @@ import copy
 import inspect
 import json
 import os
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -22,6 +24,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.models import registry
 from repro_torch.train import serve
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture
@@ -668,31 +673,30 @@ def test_flash_fp32_backward_kernel_matches_plain(cuda_device, hd, causal, G,
     assert _bwd_rel(got, want) <= 2e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
-@pytest.mark.parametrize("S,H,KV,window", WINDOW_CASES)
-def test_flash_window_backward_kernels_match_plain(cuda_device, dtype, hd, S,
-                                                   H, KV, window):
-    """Both backward kernels with a window against the closed form with the
-    same window (bf16 1e-2, fp32 2e-4 relative RMS each), from the
-    windowed forward's LSE (bf16 1e-3, fp32 1e-5 of the plain one's). A
-    window of 1 makes dq and dk 0 exactly (each query sees only its own
-    key: P = 1, dS = dP - delta = 0); there each element is held within
-    the limit of 0 instead."""
-    q, k, v = _qkv(cuda_device, 2, S, H, KV, hd, dtype, seed=7)
+def _check_backward(device, B, S, H, KV, hd, dtype, causal, window):
+    """Both backward kernels against the closed form with the same mask
+    (bf16 1e-2, fp32 2e-4 relative RMS each), from the forward's LSE (bf16
+    1e-3, fp32 1e-5 of the plain one's), one launch a call. A window of 1
+    makes dq and dk 0 exactly (each query sees only its own key: P = 1,
+    dS = dP - delta = 0); there each element is held within the limit of 0
+    instead."""
+    q, k, v = _qkv(device, B, S, H, KV, hd, dtype, seed=7)
     dy = torch.randn_like(q)
     lse = tfa.new_lse(q)
-    out = tfa.flash_attention(q, k, v, causal=True, window=window, lse=lse)
-    _, lse_ref = tfa.flash_attention_plain_lse(q, k, v, causal=True,
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    _, lse_ref = tfa.flash_attention_plain_lse(q, k, v, causal=causal,
                                                window=window)
     bf16 = dtype == torch.bfloat16
     assert (lse - lse_ref).abs().max().item() <= (1e-3 if bf16 else 1e-5)
     kernel = tfa.BACKWARD_KERNELS[tfa.ROUTES[dtype]]
-    got = kernel(q, k, v, out, lse, dy, causal=True, window=window)
-    want = tfa.flash_attention_backward(q, k, v, dy, True, window)
+    n0 = kernel.launches
+    got = kernel(q, k, v, out, lse, dy, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    want = tfa.flash_attention_backward(q, k, v, dy, causal, window)
     limit = 1e-2 if bf16 else 2e-4
     for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
         if w.abs().max().item() == 0:
             assert g.float().abs().max().item() <= limit
         else:
@@ -701,7 +705,55 @@ def test_flash_window_backward_kernels_match_plain(cuda_device, dtype, hd, S,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [128, 768, 4096, 8192])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+@pytest.mark.parametrize("S,H,KV,window", WINDOW_CASES)
+def test_flash_window_backward_kernels_match_plain(cuda_device, dtype, hd, S,
+                                                   H, KV, window):
+    """Both backward kernels with a window against the closed form with the
+    same window (``_check_backward``)."""
+    _check_backward(cuda_device, 2, S, H, KV, hd, dtype, True, window)
+
+
+def _family_train_attn():
+    """Each family's training attention (chip_smoke.py phase 13): the
+    (H, KV, hd, causal, window) of every K2 shape ``train_shapes`` gives
+    its published config at its training batch (kimi-k2's published
+    attention too), at a short S: a ragged one past a window that bites at
+    the training S (mixtral's window of 4096 = S does not), whisper's
+    encoder at its frames, else 300."""
+    cases = {}
+    for arch in chip_smoke.TRAIN_ARCHS:
+        B, S = chip_smoke.TRAIN_BATCH.get(arch, (1, chip_smoke.S_LONG))
+        for s in chip_smoke.train_shapes(registry.load_config(arch), B, S):
+            if s["kernel"] != "flash_attention":
+                continue
+            _, S_train, H, KV, hd = s["shape"]
+            w, causal = s["window"], s["causal"]
+            short = w + 257 if w and w < S_train else 300 if causal \
+                else S_train
+            cases["-".join(filter(None, (arch, s["part"])))] = (
+                short, H, KV, hd, causal, w)
+    return cases
+
+
+FAMILY_TRAIN_ATTN = _family_train_attn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", sorted(FAMILY_TRAIN_ATTN))
+def test_flash_backward_kernels_at_family_training_shapes(cuda_device,
+                                                          family, dtype):
+    """Both backward kernels at each family's training heads, head dim,
+    mask and window (``_check_backward``, B = 1)."""
+    S, H, KV, hd, causal, window = FAMILY_TRAIN_ATTN[family]
+    _check_backward(cuda_device, 1, S, H, KV, hd, dtype, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [128, 768, 4096, 8192, 1024, 1536, 2048, 2560,
+                               3840, 5376])
 @pytest.mark.parametrize("rows", [1, 4, 133, 4097])
 def test_rmsnorm_backward_kernel_matches_plain(cuda_device, rows, D, dtype):
     """K1's backward kernel against the closed form: dx within the
