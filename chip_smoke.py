@@ -209,7 +209,10 @@ profiler, every loss finite, exactly ``expected_train_launches`` a step
 remat), step ms, tokens/s and peak memory below 80 GB; the profiled
 step's device time by kernel name (``step_split``: K1's and K2's forward
 and backward, cuBLAS's products, the chunked CE, AdamW and the rest,
-summing to its busy time); the gradients of one batch against the plain
+summing to its busy time) and its readings of the program's spans
+(``span_split``: AdamW, accumulation, CE, MoE dispatch and experts, the
+step's share of busy time, the idle the program causes) and MoE counters
+(``moe_counts``: the slot fill); the gradients of one batch against the plain
 path (``grads_check``: bf16 at the cut width, 1 x 1024, loss 1e-2 and
 norm 2e-2, mamba2's by its loss and, with the plain forward, K1's
 backward kernel by the norm; fp32 at the reduced config, loss 1e-5 and
@@ -250,6 +253,7 @@ attention path's and K2's share of device time, with the package beside
 the script: a copy of this file beside another tree's ``src`` measures
 that tree.
 """
+import bisect
 import collections
 import contextlib
 import copy
@@ -3060,9 +3064,28 @@ STEP_KERNELS = (("k1_forward", ("rmsnorm_rows", "rmsnorm_ring")),
                 ("cublas_gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-# step_ranges' names: the profiler also puts each range on the device's
-# timeline (a user annotation), which is no kernel
-STEP_RANGES = ("ce", "adamw")
+# The program's spans (obs.trace.device_ranges) by the reading each feeds:
+# a kernel feeds the readings of every span whose host interval holds its
+# launch call; the MoE block's backward less its expert products' is
+# dispatch too (span_readings)
+STEP_SPANS = {"chunked_ce": ("rt.train.ce", "rt.train.ce.bwd"),
+              "adamw": ("rt.adamw.update",),
+              "accumulate": ("rt.train.accumulate",),
+              "moe_dispatch": ("rt.moe.route", "rt.moe.pack",
+                               "rt.moe.combine"),
+              "moe_experts": ("rt.moe.experts", "rt.moe.experts.bwd"),
+              "train_step": ("rt.train.step",),
+              "prefill": ("rt.serve.prefill",)}
+MOE_BWD, MOE_EXPERTS_BWD = "rt.moe.bwd", "rt.moe.experts.bwd"
+# the profiler's own host events (its buffer requests), whose idle is not
+# the program's
+PROFILER_EVENTS = ("Activity Buffer Request", "Activity_Buffer_Request")
+# kernels that do not belong in a reading's spans: K1's and K2's in the CE,
+# AdamW, the accumulation and dispatch; products in route, pack, combine
+FOREIGN = (("chunked_ce", "adamw", "accumulate", "moe_dispatch"),
+           ("flash_", "rmsnorm")), \
+          (("rt.moe.route", "rt.moe.pack", "rt.moe.combine"), ("nvjet", "bmm"))
+MOE_COUNTERS = ("moe.rows_routed", "moe.rows_kept", "moe.slots")
 
 
 def kernel_class(name):
@@ -3073,81 +3096,136 @@ def kernel_class(name):
     return "rest"
 
 
-class _RangeOpen(torch.autograd.Function):
-    """Identity whose backward opens ``rf`` (a profiler range): on a CE
-    piece's output, where the piece's backward starts."""
-    @staticmethod
-    def forward(ctx, x, rf):
-        ctx.rf = rf
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        ctx.rf.__enter__()
-        return g, None
+def _merged(intervals):
+    """Sorted, merged (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
-class _RangeClose(torch.autograd.Function):
-    """Identity whose backward closes ``rf``: on a CE piece's input, where
-    the piece's backward (the recompute included) ends."""
-    @staticmethod
-    def forward(ctx, x, rf):
-        ctx.rf = rf
-        return x.view_as(x)
+def _subtract(xs, ys):
+    """The merged intervals ``xs`` less the merged intervals ``ys``."""
+    out = []
+    for a, b in xs:
+        cur = a
+        for c, d in ys:
+            if d <= cur or c >= b:
+                continue
+            if c > cur:
+                out.append([cur, c])
+            cur = max(cur, d)
+        if cur < b:
+            out.append([cur, b])
+    return out
 
-    @staticmethod
-    def backward(ctx, g):
-        ctx.rf.__exit__(None, None, None)
-        return g, None
+
+def _inside(intervals, t):
+    """Whether ``t`` lies in one of the merged ``intervals``."""
+    j = bisect.bisect_right(intervals, [t, float("inf")]) - 1
+    return j >= 0 and t < intervals[j][1]
 
 
-@contextlib.contextmanager
-def step_ranges():
-    """Profiler ranges around a train step's chunked CE (each piece's
-    forward, and its backward with the checkpoint's recompute: autograd
-    runs a piece's backward nodes in a row, the later piece first) and
-    AdamW's update, named "ce" and "adamw"."""
-    from torch.profiler import record_function
-    from repro_torch.optim import adamw
-    from repro_torch.train import loop
-    real_piece, real_update = loop._ce_piece, adamw.update
+def span_readings(names):
+    """The readings of ``STEP_SPANS`` that a kernel launched inside the
+    spans ``names`` feeds."""
+    out = {r for r, spans in STEP_SPANS.items() if names & set(spans)}
+    if MOE_BWD in names and MOE_EXPERTS_BWD not in names:
+        out.add("moe_dispatch")
+    return out
 
-    def piece(cfg, tcfg, w, xc, lc):
-        rf = record_function("ce")
-        xc = _RangeClose.apply(xc, rf)
-        with record_function("ce"):
-            nll, cnt, z = real_piece(cfg, tcfg, w, xc, lc)
-        return _RangeOpen.apply(nll, rf), cnt, z
 
-    def update(*a, **k):
-        with record_function("adamw"):
-            return real_update(*a, **k)
-    loop._ce_piece, adamw.update = piece, update
-    try:
-        yield
-    finally:
-        loop._ce_piece, adamw.update = real_piece, real_update
+def span_split(events):
+    """The program's spans over a profile's events (``prof.events()``, or
+    objects with their ``name``, ``id``, ``device_type`` and
+    ``time_range``): each device kernel's ms given to the readings of the
+    spans whose host interval holds its launch call (the runtime event
+    ``cu*`` with the kernel's correlation id: the program runs one host
+    thread at a time, the autograd engine's while the caller waits, so a
+    span's host interval holds the launches of its work, where its
+    annotation on the device's timeline misses the autograd thread's);
+    the CE's and AdamW's ms by ``kernel_class``; the kernels no launch call
+    names; the ``FOREIGN`` kernels by name;
+    and the idle the program causes: time inside the top spans
+    (``rt.train.step``, ``rt.serve.prefill``) in which no device op ran
+    and the host was not in one of the profiler's own events."""
+    from torch.autograd import DeviceType
+    from repro_torch.obs.trace import PREFIX
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type != DeviceType.CPU
+           and not e.name.startswith(PREFIX)]
+    launch = {e.id: e for e in cpu if e.name.startswith("cu")}
+    host = collections.defaultdict(list)
+    for e in cpu:
+        if e.name.startswith(PREFIX):
+            host[e.name].append((e.time_range.start, e.time_range.end))
+    host = {k: _merged(v) for k, v in host.items()}
+    ms = dict.fromkeys(STEP_SPANS, 0.0)
+    ranged = {part: collections.Counter() for part in ("chunked_ce", "adamw")}
+    foreign = collections.Counter()
+    unlinked = 0
+    for k in dev:
+        op = launch.get(k.id)
+        if op is None:
+            unlinked += 1
+            continue
+        names = {n for n, iv in host.items()
+                 if _inside(iv, op.time_range.start)}
+        readings = span_readings(names)
+        k_ms = (k.time_range.end - k.time_range.start) / 1e3
+        for r in readings:
+            ms[r] += k_ms
+            if r in ranged:
+                ranged[r][kernel_class(k.name)] += k_ms
+        for where, keys in FOREIGN:
+            if (readings | names) & set(where) \
+                    and any(x in k.name for x in keys):
+                foreign[k.name[:80]] += 1
+    tops = _merged(iv for n in STEP_SPANS["train_step"]
+                   + STEP_SPANS["prefill"] for iv in host.get(n, ()))
+    busy = _merged((e.time_range.start, e.time_range.end) for e in dev)
+    own = _merged((e.time_range.start, e.time_range.end) for e in cpu
+                  if e.name in PROFILER_EVENTS)
+    idle = _subtract(_subtract(tops, busy), own)
+    return dict(span_ms=ms, ranged_ms={k: dict(v) for k, v in ranged.items()},
+                spans=sorted(host), unlinked_kernels=unlinked,
+                foreign_kernels=dict(foreign),
+                program_idle_ms=sum(b - a for a, b in idle) / 1e3,
+                top_span_ms=sum(b - a for a, b in tops) / 1e3)
+
+
+def moe_counts():
+    """The MoE block's counters (``MOE_COUNTERS``; 0 before its first
+    call under ``obs.trace.device_ranges``)."""
+    from repro_torch.obs.metrics import REGISTRY
+    got = REGISTRY.snapshot()["counters"]
+    return {k: got.get(k, 0) for k in MOE_COUNTERS}
 
 
 def step_split(prof, wall_ms):
     """A profiled step's device time: busy ms (every device kernel's), the
     top 10 kernels by self time, and a partition of busy time into K1's and
     K2's forward and backward kernels, the chunked CE and AdamW (the
-    kernels inside their ranges' spans on the device's timeline, products
-    included), cuBLAS's other products and the rest. Checks that the
-    profile holds one device kernel for each launch call it recorded (a
-    session that dropped events would not: in one process the profiler
-    has lost kernels after its first session) and that no call went
-    through the kernels' custom ops (a DTensor's path)."""
+    kernels the program's spans launched, products included:
+    ``span_split``, recorded under ``obs.trace.device_ranges``), cuBLAS's
+    other products and the rest; with ``span_split``'s readings. Checks
+    that the profile holds one device kernel for each launch call it
+    recorded (a session that dropped events would not: in one process the
+    profiler has lost kernels after its first session) and that no call
+    went through the kernels' custom ops (a DTensor's path)."""
     from torch.autograd import DeviceType
+    from repro_torch.obs.trace import PREFIX
     avgs = prof.key_averages()
-    events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
-    spans = {name: [(e.time_range.start, e.time_range.end)
-                    for e in events if e.name == name]
-             for name in STEP_RANGES}
-    check(all(spans.values()), f"a range left no span on the device: "
-          f"{ {k: len(v) for k, v in spans.items()} }")
-    dev = [e for e in events if e.name not in STEP_RANGES]
+    events = prof.events()
+    split = span_split(events)
+    check(all(n in split["spans"] for part in ("chunked_ce", "adamw")
+              for n in STEP_SPANS[part][:1]),
+          f"the CE or AdamW span is missing: {split['spans']}")
+    dev = [e for e in events if e.device_type != DeviceType.CPU
+           and not e.name.startswith(PREFIX)]
     n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev)
     launch_calls = sum(e.count for e in avgs if e.device_type == DeviceType.CPU
                        and "LaunchKernel" in e.key)
@@ -3158,32 +3236,25 @@ def step_split(prof, wall_ms):
     check(custom == 0, f"{custom} calls went through the kernels' custom ops")
     classes = [c for c, _ in STEP_KERNELS] + ["rest"]
     parts = dict.fromkeys(classes + ["chunked_ce", "adamw"], 0.0)
-    ranged = {name: dict.fromkeys(classes, 0.0) for name in STEP_RANGES}
     for e in dev:
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        cls = kernel_class(e.name)
-        where = next((name for name, sp in spans.items()
-                      if any(a <= e.time_range.start < b for a, b in sp)),
-                     None)
-        if where:
-            ranged[where][cls] += ms
-        parts[{"ce": "chunked_ce", "adamw": "adamw"}.get(where, cls)] += ms
+        parts[kernel_class(e.name)] += (e.time_range.end
+                                        - e.time_range.start) / 1e3
+    # the CE's and AdamW's kernels, taken out of their classes' time
+    for part, by_class in split["ranged_ms"].items():
+        for cls, v in by_class.items():
+            parts[cls] -= v
+            parts[part] += v
     busy = sum(parts.values())
-    # one stream: a range's kernels fit in its span
-    for name, sp in spans.items():
-        check(sum(ranged[name].values()) <= sum(b - a for a, b in sp) / 1e3
-              * (1 + 1e-6), f"{name}'s kernels overrun its span")
     top = sorted((e for e in avgs if e.device_type != DeviceType.CPU
-                  and e.key not in STEP_RANGES),
+                  and not e.key.startswith(PREFIX)),
                  key=lambda e: -e.self_device_time_total)[:10]
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
         device_kernels=n_kernels, launch_calls=launch_calls,
         parts_ms=parts, parts_share={k: v / busy for k, v in parts.items()},
-        ce_ranged_ms=ranged["ce"], adamw_ranged_ms=ranged["adamw"],
-        spans={k: len(v) for k, v in spans.items()},
+        train_step_share=split["span_ms"]["train_step"] / busy,
         top10=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
-                    count=e.count) for e in top])
+                    count=e.count) for e in top], **split)
 
 
 def rmsnorm_plain_other(x, scale, eps=1e-6):
@@ -3341,7 +3412,9 @@ def train_family(spec):
     0, ``spec["steps"]`` steps through train.make_train_step then one more
     under the profiler, each with exactly ``expected_train_launches`` and a
     finite loss; step ms (median of the steps after the first), tokens/s,
-    peak memory; the profiled step's split (``step_split``); the launches
+    peak memory; the profiled step's split (``step_split``, under
+    ``obs.trace.device_ranges``) and its MoE counters and slot fill
+    (``moe_counts``: the rows kept over the buffer's rows); the launches
     by shape (``train_shapes``); then the gradients against the plain
     path, bf16 at the published width (``grad_batch``; SPLIT_ARCHS with
     the backward kernel split out, beside the fp32 witness) and fp32 at
@@ -3350,6 +3423,7 @@ def train_family(spec):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa, ops
     from repro_torch.models import registry
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.train import (TrainConfig, init_state, make_train_step,
                                    trainable)
     t_run = time.perf_counter()
@@ -3376,7 +3450,8 @@ def train_family(spec):
         torch.cuda.synchronize()
         with contextlib.ExitStack() as stack:
             if last:
-                stack.enter_context(step_ranges())
+                moe_before = moe_counts()
+                stack.enter_context(obs_trace.device_ranges())
                 prof = stack.enter_context(profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             t = time.perf_counter()
@@ -3390,6 +3465,7 @@ def train_family(spec):
               f"{want}")
         for k in want:
             launches[k] += counts[k]
+    moe = {k: v - moe_before[k] for k, v in moe_counts().items()}
     print("[phase13] timed", flush=True)     # the next process may start
     check(all(math.isfinite(x) for x in losses),
           f"{spec['arch']}: losses {losses}")
@@ -3409,7 +3485,9 @@ def train_family(spec):
                launches_per_step=want, launches=launches,
                shapes=[dict(s, launches=s["backward"] * (spec["steps"] + 1))
                        for s in shapes],
-               profile=step_split(prof, step_ms[-1]))
+               profile=step_split(prof, step_ms[-1]), moe_counts=moe,
+               moe_slot_fill=moe["moe.rows_kept"] / moe["moe.slots"]
+               if moe["moe.slots"] else None)
     check(rec["peak_memory_gb"] * 1e9 < CARD_BYTES,
           f"{spec['arch']}: peak {rec['peak_memory_gb']} GB")
     del opt, prof

@@ -26,6 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from ..obs import trace as obs_trace
+from ..obs.metrics import REGISTRY
 from ..sharding.specs import (active_mesh, active_rules, is_dtensor,
                               placements_for)
 from .config import ModelConfig
@@ -104,40 +106,63 @@ def moe_mlp(p, cfg: ModelConfig, x):
 
 def _moe_experts(cfg: ModelConfig, x, router, wg, wu, wd, e0: int):
     """``moe_mlp`` over experts e0 .. e0 + len(wg) of the routing of all of
-    x's tokens; the other experts' rows contribute nothing to y."""
+    x's tokens; the other experts' rows contribute nothing to y.
+
+    Spans: ``rt.moe.route``, ``rt.moe.pack``, ``rt.moe.experts``,
+    ``rt.moe.combine``; in the backward ``rt.moe.bwd`` (the block) with
+    ``rt.moe.experts.bwd`` (the expert products) inside it. Under
+    ``obs.trace.device_ranges`` the counters ``moe.rows_routed`` (T*K),
+    ``moe.rows_kept`` (the rows that fit a local expert's capacity, a 0-d
+    tensor summed on the device) and ``moe.slots`` (El*C) add up."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
     El = wg.shape[0]
-    xt = x.reshape(T, D)
-    r = route(router, cfg, xt)
-    C, keep, slot, st = r["C"], r["keep"], r["slot"], r["st"]
-    local = keep & (r["se"] >= e0) & (r["se"] < e0 + El)
-    slot = torch.where(local, slot - e0 * C, El * C)
+    bwd = obs_trace.backward_range("rt.moe.bwd")
+    x, router, wg, wu, wd = bwd.close_at(x, router, wg, wu, wd)
+    with obs_trace.span("rt.moe.route"):
+        xt = x.reshape(T, D)
+        r = route(router, cfg, xt)
+        C, keep, slot, st = r["C"], r["keep"], r["slot"], r["st"]
+        local = keep & (r["se"] >= e0) & (r["se"] < e0 + El)
+        slot = torch.where(local, slot - e0 * C, El * C)
+    if obs_trace.ranges_on():
+        REGISTRY.counter("moe.rows_routed").inc(T * K)
+        REGISTRY.counter("moe.rows_kept").inc(local.sum())
+        REGISTRY.counter("moe.slots").inc(El * C)
 
-    # pack: dropped rows all land in the overflow row El*C, which is cut off
-    buf = torch.zeros((El * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[slot] = xt[st]
-    buf = L.constrain(buf[:-1].reshape(El, C, D), ("experts", None, "embed"))
+    with obs_trace.span("rt.moe.pack"):
+        # dropped rows all land in the overflow row El*C, which is cut off
+        buf = torch.zeros((El * C + 1, D), dtype=x.dtype, device=x.device)
+        buf[slot] = xt[st]
+        buf = L.constrain(buf[:-1].reshape(El, C, D),
+                          ("experts", None, "embed"))
 
     # expert computation (batched GEMM over the expert dim)
-    h = torch.bmm(buf, wg.to(x.dtype))
-    u = torch.bmm(buf, wu.to(x.dtype))
-    h = L.constrain(F.silu(h) * u, ("experts", None, "expert_ff"))
-    out = L.constrain(torch.bmm(h, wd.to(x.dtype)),
-                      ("experts", None, "embed"))
+    ebwd = obs_trace.backward_range("rt.moe.experts.bwd")
+    buf, wg, wu, wd = ebwd.close_at(buf, wg, wu, wd)
+    with obs_trace.span("rt.moe.experts"):
+        h = torch.bmm(buf, wg.to(x.dtype))
+        u = torch.bmm(buf, wu.to(x.dtype))
+        h = L.constrain(F.silu(h) * u, ("experts", None, "expert_ff"))
+        out = L.constrain(torch.bmm(h, wd.to(x.dtype)),
+                          ("experts", None, "embed"))
+    out = ebwd.open_at(out)
 
-    # combine
-    rows = out.reshape(El * C, D)
-    gathered = torch.where(local[:, None], rows[slot.clamp(0, El * C - 1)],
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    y = torch.zeros((T, D), dtype=x.dtype, device=x.device)
-    y.index_add_(0, st, gathered * r["sg"][:, None])
+    with obs_trace.span("rt.moe.combine"):
+        rows = out.reshape(El * C, D)
+        gathered = torch.where(local[:, None],
+                               rows[slot.clamp(0, El * C - 1)],
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+        y = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+        y.index_add_(0, st, gathered * r["sg"][:, None])
 
-    # auxiliary load-balance loss
-    frac = r["counts"].float() / (T * K)
-    aux = E * torch.sum(frac * r["probs"].mean(0)) * cfg.aux_loss_coef
-    return L.constrain(y.reshape(B, S, D), ("batch", "seq", "embed")), aux
+        # auxiliary load-balance loss
+        frac = r["counts"].float() / (T * K)
+        aux = E * torch.sum(frac * r["probs"].mean(0)) * cfg.aux_loss_coef
+        y = L.constrain(y.reshape(B, S, D), ("batch", "seq", "embed"))
+    return bwd.open_at(y, aux)
 
 
 def _moe_mlp_mesh(p, cfg: ModelConfig, x):

@@ -18,7 +18,10 @@ Metric name inventory (the JAX package's, ``docs/OBSERVABILITY.md``):
 ``engine.egraph_nodes``, ``engine.frontier_ready``, ``pool.tasks``,
 ``pool.queue_s``, ``pool.run_s``, ``pool.retries``, ``pool.timeouts``,
 ``pool.broken``, ``pool.degraded``, ``cache.hits``, ``cache.misses``,
-``cache.commits``, ``chaos.injected``.
+``cache.commits``, ``chaos.injected``; and the port's training and
+serving path's, under ``obs.trace.device_ranges`` (README.md, "Port CLI
+reference", "Device ranges"): ``moe.rows_routed``, ``moe.rows_kept``,
+``moe.slots``.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from typing import Dict, Optional, Union
 
 
 class Counter:
-    """A monotonically increasing named count."""
+    """A monotonically increasing named count. An increment may be a 0-d
+    device tensor: the count then stays on the device, summed there,
+    until :meth:`MetricsRegistry.snapshot` reads it."""
 
     __slots__ = ("name", "value")
 
@@ -114,7 +119,7 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         """JSON-ready view of every instrument, sorted by name."""
         return {
-            "counters": {k: self._counters[k].value
+            "counters": {k: _number(self._counters[k].value)
                          for k in sorted(self._counters)},
             "histograms": {k: self._histograms[k].snapshot()
                            for k in sorted(self._histograms)},
@@ -128,6 +133,11 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+def _number(value):
+    """A count as a Python number (a device tensor's is read once)."""
+    return value if isinstance(value, (int, float)) else value.item()
 
 
 def render(snapshot: Optional[Union[dict, MetricsRegistry]] = None) -> str:

@@ -19,11 +19,25 @@ Module-level :func:`span` / :func:`event` / :func:`counter` /
 shared null context manager / an early return) when tracing is off —
 instrumented code never needs an ``if`` guard.
 
+Device ranges: under :func:`device_ranges` every :func:`span` is also a
+``torch.profiler.record_function`` range, so a ``torch.profiler`` session
+puts the program's spans on the kernels' clock (each range's kernels sit
+under it in the trace, and the profiler draws it on the device's timeline
+too). :func:`backward_range` marks a region's backward the same way: an
+identity autograd Function on the region's outputs opens ``<name>`` in
+the backward, one on its inputs closes it. The training and serving path
+names its spans with :data:`PREFIX`, so a reader tells them from kernels.
+Off (the default), a span stays one global read and a marker returns its
+tensors as given, adding no autograd node; torch is imported only once
+the switch is on. The spans and counters are listed in README.md, "Port
+CLI reference", "Device ranges".
+
 Chrome trace event format reference:
 https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -199,6 +213,8 @@ def _open_text(path: str, mode: str):
 
 # -- module-level dispatch (no-op when no tracer installed) -----------------
 _ACTIVE: Optional[Tracer] = None
+_RANGES = False      # device_ranges(): spans are profiler ranges too
+_ON = False          # _ACTIVE is not None or _RANGES: span()'s one read
 
 
 def current() -> Optional[Tracer]:
@@ -210,6 +226,7 @@ def install(tracer: Optional[Tracer]) -> Optional[Tracer]:
     """Install ``tracer`` as the process tracer; returns the previous one."""
     global _ACTIVE
     prev, _ACTIVE = _ACTIVE, tracer
+    _refresh()
     return prev
 
 
@@ -226,9 +243,13 @@ def stop() -> Optional[Tracer]:
 
 
 def span(name: str, cat: str = "engine", **attrs: Any):
-    """Span on the installed tracer; shared null context when off."""
+    """Span on the installed tracer, and a profiler range under
+    :func:`device_ranges`; shared null context when both are off."""
+    if not _ON:
+        return _NULL_SPAN
     t = _ACTIVE
-    return _NULL_SPAN if t is None else t.span(name, cat, **attrs)
+    inner = None if t is None else t.span(name, cat, **attrs)
+    return _Range(name, inner) if _RANGES else inner
 
 
 def event(name: str, cat: str = "engine", **attrs: Any) -> None:
@@ -251,6 +272,178 @@ def complete(name: str, start_epoch_s: float, end_epoch_s: float,
     t = _ACTIVE
     if t is not None:
         t.complete(name, start_epoch_s, end_epoch_s, cat, **attrs)
+
+
+# -- device ranges: the program's spans on the profiler's clock -------------
+PREFIX = "rt."       # every span of the training and serving path
+_OPEN: dict = {}     # backward ranges opened and not yet closed, by id
+
+
+@contextlib.contextmanager
+def device_ranges():
+    """Within the block, every :func:`span` is also a profiler range and
+    :func:`backward_range` marks backwards; the previous state comes back
+    on exit, an error's included. The outermost block closes the backward
+    ranges left open (a close marker whose backward never ran) and, on a
+    clean exit, raises ``RuntimeError`` naming them."""
+    global _RANGES
+    prev = _RANGES
+    _RANGES = True
+    _refresh()
+    try:
+        yield
+    finally:
+        _RANGES = prev
+        _refresh()
+        left = []
+        if not prev:
+            left = open_backward_ranges()
+            for r in list(_OPEN.values()):
+                r.close()
+    if left:
+        raise RuntimeError(f"backward ranges opened and never closed: {left}")
+
+
+def _refresh():
+    global _ON
+    _ON = _ACTIVE is not None or _RANGES
+
+
+def ranges_on() -> bool:
+    """Whether :func:`device_ranges` is on."""
+    return _RANGES
+
+
+def open_backward_ranges() -> List[str]:
+    """The names of the backward ranges opened and not yet closed."""
+    return sorted(r.name for r in _OPEN.values())
+
+
+def _record_function(name: str):
+    from torch.profiler import record_function
+    return record_function(name)
+
+
+class _Range:
+    """A span that is also a profiler range (and, with a tracer installed,
+    the tracer's span ``inner``)."""
+
+    __slots__ = ("name", "inner", "rf")
+
+    def __init__(self, name: str, inner):
+        self.name, self.inner = name, inner
+
+    def __enter__(self):
+        self.rf = _record_function(self.name)
+        self.rf.__enter__()
+        if self.inner is not None:
+            self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.inner is not None:
+            self.inner.__exit__(*exc)
+        self.rf.__exit__(*exc)
+        return False
+
+
+def _as_given(ts):
+    """``ts`` as a marker returns them: one tensor alone, else the tuple."""
+    return ts[0] if len(ts) == 1 else tuple(ts)
+
+
+class _NullBackwardRange:
+    """:func:`backward_range` while device ranges are off: both markers
+    return their tensors as given."""
+
+    __slots__ = ()
+
+    def close_at(self, *ts):
+        """``ts`` unchanged."""
+        return _as_given(ts)
+
+    open_at = close_at
+
+
+_NULL_BACKWARD = _NullBackwardRange()
+
+
+class BackwardRange:
+    """A profiler range ``name`` around one region's backward.
+
+    ``close_at(*inputs)`` is an identity on the region's inputs whose
+    backward closes the range, ``open_at(*outputs)`` one on its outputs
+    whose backward opens it: autograd runs the region's backward between
+    the two (a checkpoint's recompute inside it). Where no input needs a
+    gradient the close would never run, and neither marker is placed."""
+
+    __slots__ = ("name", "rf", "live")
+
+    def __init__(self, name: str):
+        self.name, self.rf, self.live = name, None, False
+
+    def close_at(self, *ts):
+        """``ts`` through the marker whose backward closes the range."""
+        self.live = any(t.requires_grad for t in ts)
+        return _mark(self, False, ts)
+
+    def open_at(self, *ts):
+        """``ts`` through the marker whose backward opens the range."""
+        return _mark(self, True, ts) if self.live else _as_given(ts)
+
+    def open(self):
+        """Open the range (the outputs' marker, in the backward)."""
+        self.rf = _record_function(self.name)
+        self.rf.__enter__()
+        _OPEN[id(self)] = self
+
+    def close(self):
+        """Close it (the inputs' marker, in the backward)."""
+        if _OPEN.pop(id(self), None) is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+
+
+def backward_range(name: str):
+    """A :class:`BackwardRange` named ``name`` under :func:`device_ranges`,
+    else a shared one whose markers change nothing."""
+    return BackwardRange(name) if _RANGES else _NULL_BACKWARD
+
+
+_MARKER = None
+
+
+def _mark(rng: BackwardRange, opens: bool, ts):
+    global _MARKER
+    if _MARKER is None:
+        import torch
+
+        class _Marker(torch.autograd.Function):
+            """Identity on tensors whose backward opens or closes a
+            :class:`BackwardRange`."""
+
+            @staticmethod
+            def forward(ctx, rng, opens, *ts):
+                ctx.rng, ctx.opens = rng, opens
+                ctx.set_materialize_grads(False)
+                return tuple(t.view_as(t) for t in ts)
+
+            @staticmethod
+            def backward(ctx, *gs):
+                if ctx.opens:
+                    ctx.rng.open()
+                else:
+                    ctx.rng.close()
+                return (None, None) + gs
+        _MARKER = _Marker
+    # only the tensors that carry a gradient go through the marker
+    idx = [i for i, t in enumerate(ts) if t.requires_grad]
+    out = list(ts)
+    if idx:
+        for i, t in zip(idx, _MARKER.apply(rng, opens,
+                                           *(ts[i] for i in idx))):
+            out[i] = t
+    return _as_given(out)
 
 
 def load_events(path: str) -> List[dict]:

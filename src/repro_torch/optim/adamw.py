@@ -16,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import trace as obs_trace
 from ..sharding.specs import is_dtensor
 
 # A leaf's update in fp32 makes a few temporaries of the leaf's size; a leaf
@@ -61,7 +62,12 @@ def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     tensors; returns ``(params, state, grad_norm)`` with ``params`` and
     ``state`` updated in place. ``grad_norm`` (0-d fp32) is the global
     norm before clipping, 0 when clipping is off. Nothing here waits for
-    the device."""
+    the device. Span: ``rt.adamw.update``."""
+    with obs_trace.span("rt.adamw.update"):
+        return _update(grads, state, params, cfg)
+
+
+def _update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     step = state["step"] + 1
     scale = None
     if cfg.clip_norm:

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import registry
 from ..models.layers import seq_gathered
+from ..obs import trace as obs_trace
 from ..sharding.specs import reduce_partial
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -34,18 +35,24 @@ CE_CHUNKS = 8   # sequence-chunked vocab-parallel CE (bounds logits memory)
 
 
 def _ce_piece(cfg, tcfg, w, xc, lc):
-    """CE over one sequence chunk; logits never materialize for full S."""
-    logits = (xc @ w.to(xc.dtype)).float()
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / 30.0) * 30.0
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = reduce_partial(torch.gather(logits, -1,
-                                      lc.clamp(min=0).long()[..., None]))[..., 0]
-    mask = (lc >= 0).float()
-    nll = -((tgt - lse) * mask).sum()
-    z = torch.square(lse * mask).sum() if tcfg.z_loss \
-        else torch.zeros((), device=logits.device)
-    return nll, mask.sum(), z
+    """CE over one sequence chunk; logits never materialize for full S.
+    Spans: ``rt.train.ce`` (the forward, and the checkpoint's recompute)
+    and ``rt.train.ce.bwd`` (the chunk's backward)."""
+    bwd = obs_trace.backward_range("rt.train.ce.bwd")
+    xc, w = bwd.close_at(xc, w)
+    with obs_trace.span("rt.train.ce"):
+        logits = (xc @ w.to(xc.dtype)).float()
+        if cfg.logit_softcap:
+            logits = torch.tanh(logits / 30.0) * 30.0
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = reduce_partial(torch.gather(
+            logits, -1, lc.clamp(min=0).long()[..., None]))[..., 0]
+        mask = (lc >= 0).float()
+        nll = -((tgt - lse) * mask).sum()
+        z = torch.square(lse * mask).sum() if tcfg.z_loss \
+            else torch.zeros((), device=logits.device)
+        cnt = mask.sum()
+    return bwd.open_at(nll, cnt, z)
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
@@ -113,12 +120,13 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
             mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
                   for k, x in batch.items()}
             grads, metrics = single(model, mb)
-            if acc is None:
-                acc = {k: torch.zeros(g.shape, dtype=torch.float32,
-                                      device=g.device)
-                       for k, g in grads.items()}
-            # paper bug #6: this 1/n scaling is what buggy impls forget
-            acc = {k: acc[k] + grads[k] / n for k in acc}
+            with obs_trace.span("rt.train.accumulate"):
+                if acc is None:
+                    acc = {k: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device)
+                           for k, g in grads.items()}
+                # paper bug #6: this 1/n scaling is what buggy impls forget
+                acc = {k: acc[k] + grads[k] / n for k in acc}
             per_micro.append(metrics)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
@@ -134,9 +142,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
     grad_fn = make_grad_fn(cfg, tcfg)
 
     def train_step(model, opt_state, batch):
-        grads, metrics = grad_fn(model, batch)
-        _, opt_state, gnorm = adamw.update(
-            grads, opt_state, dict(model.named_parameters()), tcfg.optimizer)
+        with obs_trace.span("rt.train.step"):
+            grads, metrics = grad_fn(model, batch)
+            _, opt_state, gnorm = adamw.update(
+                grads, opt_state, dict(model.named_parameters()),
+                tcfg.optimizer)
         metrics["grad_norm"] = gnorm
         return model, opt_state, metrics
 

@@ -4,12 +4,15 @@ from __future__ import annotations
 import torch
 
 from ..models import encdec, registry
+from ..obs import trace as obs_trace
 
 
 @torch.no_grad()
 def prefill_logits(model, batch: dict):
-    """Parallel prefill: logits (B, S, vocab) for every prompt position."""
-    logits, _ = registry.forward(model, batch)
+    """Parallel prefill: logits (B, S, vocab) for every prompt position.
+    Span: ``rt.serve.prefill``."""
+    with obs_trace.span("rt.serve.prefill"):
+        logits, _ = registry.forward(model, batch)
     return logits
 
 

@@ -19,9 +19,11 @@ the parts the CPU can check.
   backwards by shape against ``train_shapes``, which gives phase 13's
   kernel records their shapes and launches;
 * (d) the training batch has ``tests/test_arch_smoke.py``'s layout;
-* the profiler ranges whose device spans ``chip_smoke.step_split`` reads:
-  every CE piece's forward and backward (its recompute and its backward
-  nodes) and AdamW's update in one, on a CPU profile;
+* the program's spans whose kernels ``chip_smoke.step_split`` reads by
+  their launch calls (``span_split``): every CE piece's forward and
+  backward (its recompute and its backward nodes) and AdamW's update in
+  one, on a CPU profile; ``span_split``'s arithmetic on a made-up step and
+  every span it finds on a CPU step;
 * the two faults phase 13 found on the card: the SSD's NaN gradients
   where a chunk's decay overflows, and AdamW's whole-leaf fp32
   temporaries.
@@ -31,6 +33,7 @@ import contextlib
 import dataclasses
 import functools
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -47,9 +50,11 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.models import ssm as tssm
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 from repro_torch.train import TrainConfig, init_state, make_train_step
 from repro_torch.train import loop
+from repro_torch.train.serve import prefill_logits
 from test_arch_smoke import _small_batch
 from torch_parity import one_thread_module  # noqa: F401 (one thread)
 
@@ -222,11 +227,15 @@ def test_train_batch_layout_is_arch_smokes(arch):
         assert 0 <= int(got[k].min()) and int(got[k].max()) < cfg.vocab
 
 
+CE_SPANS = ("rt.train.ce", "rt.train.ce.bwd")
+
+
 def _ranged_events(prof):
-    """The outermost CPU events of each of ``step_ranges``' ranges (a
-    recompute's "ce" inside a backward's "ce" is not listed apart): the
-    ops whose kernels the profiler spans on the device's timeline."""
-    out = {name: [] for name in chip_smoke.STEP_RANGES}
+    """The outermost CPU events of each of the program's CE and AdamW spans
+    (a recompute's ``rt.train.ce`` inside a backward's ``rt.train.ce.bwd``
+    is not listed apart): the ops whose kernels ``chip_smoke.step_split``
+    gives each."""
+    out = {name: [] for name in CE_SPANS + ("rt.adamw.update",)}
 
     def visit(evs):
         for ev in evs:
@@ -248,28 +257,31 @@ def _names(ev):
 
 @pytest.mark.parametrize("arch", ["gpt", "gemma3-12b"])
 def test_step_ranges_hold_the_ce_and_adamw(arch):
-    """``step_ranges`` on a profiled CPU step: one "ce" range for each CE
-    piece's forward and one for its backward (the checkpoint's recompute
-    and the piece's backward nodes nested in it), one "adamw"; no CE
-    backward node and no AdamW op outside them; and the patched step's
-    loss and gradient norm are the unpatched step's."""
+    """The program's spans under ``obs.trace.device_ranges`` on a profiled
+    CPU step: one ``rt.train.ce`` for each CE piece's forward and one
+    ``rt.train.ce.bwd`` for its backward (the checkpoint's recompute and
+    the piece's backward nodes nested in it), one ``rt.adamw.update``; no
+    CE backward node and no AdamW op outside them; every backward range
+    closed; and the step's loss and gradient norm are those of a step with
+    the switch off."""
     cfg = registry.load_config(arch).reduced()
     batch = chip_smoke.train_batch(cfg, 2, 32, torch.Generator().manual_seed(0),
                                    "cpu")
     step = make_train_step(cfg, TrainConfig())
     plain = step(*init_state(cfg, 0, "cpu"), batch)[2]
-    with chip_smoke.step_ranges(), \
+    with obs_trace.device_ranges(), \
             profile(activities=[ProfilerActivity.CPU]) as prof:
         got = step(*init_state(cfg, 0, "cpu"), batch)[2]
-    assert loop._ce_piece is not None and \
-        loop._ce_piece.__name__ == "_ce_piece"
+        assert not obs_trace.open_backward_ranges()
+    assert not obs_trace.ranges_on()
     for k in ("loss", "grad_norm"):
         assert torch.equal(got[k], plain[k]), k
     ranges = _ranged_events(prof)
-    assert len(ranges["adamw"]) == 1
-    assert len(ranges["ce"]) == 2 * loop.CE_CHUNKS
+    assert len(ranges["rt.adamw.update"]) == 1
+    assert len(ranges["rt.train.ce"]) == len(ranges["rt.train.ce.bwd"]) \
+        == loop.CE_CHUNKS
     inside = collections.Counter(
-        n for ev in ranges["ce"] for n in _names(ev))
+        n for name in CE_SPANS for ev in ranges[name] for n in _names(ev))
     everywhere = collections.Counter(
         e.name for e in prof.events() if e.device_type == DeviceType.CPU)
     lse = [n for n in everywhere if n.endswith("LogsumexpBackward0")]
@@ -277,8 +289,84 @@ def test_step_ranges_hold_the_ce_and_adamw(arch):
                        for n in lse)
     # each piece's forward and its recompute, every one in a range
     assert inside["aten::logsumexp"] == everywhere["aten::logsumexp"] > 0
-    adam = collections.Counter(n for n in _names(ranges["adamw"][0]))
+    adam = collections.Counter(n for n in _names(ranges["rt.adamw.update"][0]))
     assert adam["aten::sqrt"] == everywhere["aten::sqrt"] > 0
+
+
+def _event(name, start, end, device=DeviceType.CPU, id=0):
+    return types.SimpleNamespace(
+        name=name, id=id, device_type=device,
+        time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_span_split_reads_kernels_by_launch_call():
+    """``chip_smoke.span_split`` on a made-up step (us): a kernel feeds the
+    readings of the spans around its launch call, not where it runs; the
+    MoE block's backward less its products' is dispatch; the spans'
+    device annotations are no kernels; a kernel with no launch call is
+    counted apart; K1's kernel in AdamW is foreign; the idle inside the
+    step less the profiler's own events is the program's."""
+    cuda = DeviceType.CUDA
+    events = [
+        _event("rt.train.step", 0, 100), _event("rt.moe.route", 10, 20),
+        _event("rt.moe.bwd", 40, 70), _event("rt.moe.experts.bwd", 50, 60),
+        _event("rt.adamw.update", 80, 95),
+        _event("Activity Buffer Request", 30, 35),
+        _event("cudaLaunchKernel", 12, 13, id=1),
+        _event("cudaLaunchKernel", 45, 46, id=2),
+        _event("cudaLaunchKernel", 55, 56, id=3),
+        _event("cudaLaunchKernel", 85, 86, id=4),
+        _event("cudaLaunchKernel", 82, 83, id=5),
+        _event("indexFuncLargeIndex", 14, 18, cuda, 1),
+        _event("rt.moe.route", 13, 19, cuda, 1),
+        # launched in the block's backward, run after its close
+        _event("indexing_backward_kernel", 46, 52, cuda, 2),
+        _event("nvjet_tst", 55, 65, cuda, 3),
+        _event("elementwise_kernel", 86, 90, cuda, 4),
+        _event("rmsnorm_rows", 90, 91, cuda, 5),
+        _event("orphan", 96, 97, cuda, 6)]
+    got = chip_smoke.span_split(events)
+    ms = {k: round(v, 9) for k, v in got["span_ms"].items()}
+    assert ms == dict(chunked_ce=0, adamw=0.005, accumulate=0,
+                      moe_dispatch=0.010, moe_experts=0.010,
+                      train_step=0.025, prefill=0)
+    assert got["ranged_ms"] == {"chunked_ce": {},
+                                "adamw": {"rest": 0.004, "k1_forward": 0.001}}
+    assert got["unlinked_kernels"] == 1
+    assert got["foreign_kernels"] == {"rmsnorm_rows": 1}
+    assert got["spans"] == ["rt.adamw.update", "rt.moe.bwd",
+                            "rt.moe.experts.bwd", "rt.moe.route",
+                            "rt.train.step"]
+    # idle in [0, 100]: 74 us of no kernel, 5 of them the profiler's
+    assert round(got["program_idle_ms"], 9) == 0.069
+    assert got["top_span_ms"] == 0.1
+
+
+def test_span_split_finds_every_span_of_a_cpu_step():
+    """On a CPU profile of a tiny mixtral step (2 microbatches) and one
+    prefill under ``obs.trace.device_ranges``, ``span_split`` finds every
+    span ``STEP_SPANS`` names, with no kernel to give them; the MoE
+    counters' change (``moe_counts``) is the step's and the prefill's."""
+    cfg = registry.load_config("mixtral-8x7b").reduced()
+    batch = chip_smoke.train_batch(cfg, 2, 32, torch.Generator().manual_seed(0),
+                                   "cpu")
+    model, opt = init_state(cfg, 0, "cpu")
+    step = make_train_step(cfg, TrainConfig(microbatches=2))
+    before = chip_smoke.moe_counts()
+    with obs_trace.device_ranges(), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        model, opt, _ = step(model, opt, batch)
+        prefill_logits(model, {"tokens": batch["tokens"][:1]})
+    got = chip_smoke.span_split(prof.events())
+    names = {n for spans in chip_smoke.STEP_SPANS.values() for n in spans}
+    assert set(got["spans"]) == names | {chip_smoke.MOE_BWD}
+    assert not any(got["span_ms"].values()) and not got["foreign_kernels"]
+    assert got["unlinked_kernels"] == 0
+    assert 0 < got["program_idle_ms"] <= got["top_span_ms"]
+    moe = {k: v - before[k] for k, v in chip_smoke.moe_counts().items()}
+    # 2 microbatches and a prefill of one sequence, each layer's block
+    assert moe["moe.rows_routed"] == (2 * 32 + 32) * cfg.top_k * cfg.n_layers
+    assert 0 < moe["moe.rows_kept"] <= moe["moe.slots"]
 
 
 # --- faults phase 13 found on the card -------------------------------------
