@@ -206,7 +206,7 @@ each: TRAIN_STEPS steps of 1 x 4096 tokens (qwen2-vl 4 x (1024 patches +
 256 tokens), whisper 4 x 256 over 1500 frames) and a fourth under the
 profiler, every loss finite, exactly ``expected_train_launches`` a step
 (K1 and K2 with one backward launch each, twice the forward under
-remat), step ms, tokens/s and peak memory below 80 GB; the profiled
+remat; AdamW's two kernels a launch a leaf each), step ms, tokens/s and peak memory below 80 GB; the profiled
 step's device time by kernel name (``step_split``: K1's and K2's forward
 and backward, cuBLAS's products, the chunked CE, AdamW and the rest,
 summing to its busy time) and its readings of the program's spans
@@ -221,6 +221,21 @@ Then each backward kernel at every shape of each family's step
 (``train_shapes``, with the launches made there) against its closed
 form, timed beside it, the library's backward (SDPA's with a boolean
 mask where a window bites) and its bound.
+
+AdamW's kernels (after phase 13, in a process of their own,
+``--adamw-kernels CARD``): each over a train cell's leaves
+(yi-9b cut to 16 layers, mixtral-8x7b to 2, after one train step of the
+cells' kind whose AdamW launches must be one a leaf each; bf16
+parameters, fp32 gradients, the cells' optimizer), the whole update by
+the kernels and by the plain version, each kernel alone beside its plain
+part, their bounds (bytes at the card's rate), the host's time to
+enqueue each, the norm against fp64 (1e-6) and every leaf's p, m and v
+against the plain arithmetic (equal bits), and one profiled update's
+device kernels: only adamw_sumsq, adamw_update (one launch a leaf each)
+and the schedule's scalar ops.
+
+    python chip_smoke.py --adamw-kernels "$(nvidia-smi \
+        --query-gpu=name,power.limit --format=csv,noheader)"
 
     python -c "import chip_smoke as c; c.phase0(); c.rounding_draws()"
 
@@ -2953,7 +2968,7 @@ def train_batch(cfg, B, S, g, device="cuda"):
     return batch
 
 
-def expected_train_launches(cfg):
+def expected_train_launches(cfg, leaves=None, clip=True):
     """The launches one train step makes, by counter (one microbatch): K1
     and K2 take what one forward gives them (``expected_launches``: every
     RMSNorm, 2 a layer + the final one; whisper 3 a decoder layer + 2 an
@@ -2962,7 +2977,9 @@ def expected_train_launches(cfg):
     the config's dtype, and each recorded forward launch has one backward
     launch. With ``cfg.remat`` the blocks' forwards run again in the
     backward (the recompute launches K1 and K2 once more; whisper remats
-    its decoder blocks only)."""
+    its decoder blocks only). With ``leaves`` (the parameters the step
+    updates, on the card) AdamW's two kernels too, a launch a leaf each,
+    the norm's only where ``clip``."""
     L, E = cfg.n_layers, cfg.encoder_layers
     if cfg.family == "audio":
         k1_blocks, k1_rest, k2_blocks, k2_rest = 3 * L, 2 * E + 2, L, E
@@ -2973,11 +2990,14 @@ def expected_train_launches(cfg):
     runs = 2 if cfg.remat else 1
     route = "bf16" if cfg.dtype == "bfloat16" else "fp32"
     other = "fp32" if route == "bf16" else "bf16"
-    return {"rmsnorm": runs * k1_blocks + k1_rest,
+    want = {"rmsnorm": runs * k1_blocks + k1_rest,
             "rmsnorm_bwd": k1_blocks + k1_rest,
             f"flash_attention_{route}": runs * k2_blocks + k2_rest,
             f"flash_attention_bwd_{route}": k2_blocks + k2_rest,
             f"flash_attention_{other}": 0, f"flash_attention_bwd_{other}": 0}
+    if leaves is not None:
+        want.update(adamw_sumsq=leaves if clip else 0, adamw_update=leaves)
+    return want
 
 
 def train_shapes(cfg, B, S):
@@ -3441,7 +3461,11 @@ def train_family(spec):
     g = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
     model, opt = init_state(cfg, 0, "cuda")
-    step_fn = make_train_step(cfg, TrainConfig())
+    tcfg = TrainConfig()
+    step_fn = make_train_step(cfg, tcfg)
+    want = expected_train_launches(
+        cfg, leaves=sum(p.numel() > 0 for p in model.parameters()),
+        clip=bool(tcfg.optimizer.clip_norm))
     losses, step_ms, launches = [], [], dict.fromkeys(want, 0)
     for step in range(spec["steps"] + 1):
         batch = train_batch(cfg, B, S, g)
@@ -3758,6 +3782,251 @@ def phase13_train(peaks, smi):
     return dict(runs=runs, records=records)
 
 
+# AdamW's kernels over each train cell's leaves (tag, arch, layers): the
+# benchmark's yi9b-train-4k and mixtral-train-4k, bf16 parameters and the
+# fp32 gradients their accumulation hands the update, under the cells'
+# optimizer (portbench/traffic/train-4k.json)
+ADAMW_CELLS = (("yi9b_train_4k", "yi-9b", 16),
+               ("mixtral_train_4k", "mixtral-8x7b", 2))
+ADAMW_CELL_CONFIG = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                         clip_norm=1.0, warmup_steps=2)
+ADAMW_ITERS = 5
+
+
+def adamw_cell_step(arch, layers, cfg):
+    """``arch`` cut to ``layers`` layers at seed 0 on the card, after one
+    train step of the cells' kind (two microbatches accumulated in fp32,
+    AdamW ``cfg``) on a short batch, the launch counters reset just before
+    it: (params, state, launches), the parameters bf16 and detached, the
+    state after the step, and the step's AdamW launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    mcfg = dataclasses.replace(registry.load_config(arch), n_layers=layers)
+    model, state = init_state(mcfg, 0, "cuda")
+    step = make_train_step(mcfg, TrainConfig(optimizer=cfg, microbatches=2))
+    batch = train_batch(mcfg, 2, 256, torch.Generator(device="cuda")
+                        .manual_seed(0))
+    ops.reset_launch_counts()
+    model, state, _ = step(model, state, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return params, state, {k: counts[k] for k in ("adamw_sumsq",
+                                                  "adamw_update")}
+
+
+def adamw_kernel_names(params, grads, state, cfg):
+    """One ``optim.adamw.update`` in a profiler session of its own: its
+    device kernels by name (and count), the kernel ms ``span_split`` gives
+    ``rt.adamw.update``, and the launch counters."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.optim import adamw
+    ops.reset_launch_counts()
+    with obs_trace.device_ranges(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        adamw.update(grads, state, params, cfg)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    events = prof.events()
+    split = span_split(events)
+    names = collections.Counter(
+        e.name[:60] for e in events
+        if e.device_type != torch.autograd.DeviceType.CPU
+        and not e.name.startswith("rt."))
+    return dict(kernels=dict(names), adamw_span_ms=split["span_ms"]["adamw"],
+                unlinked_kernels=split["unlinked_kernels"],
+                update_launches={k: counts[k] for k in ("adamw_sumsq",
+                                                        "adamw_update")})
+
+
+def adamw_leaf_errors(params, grads, state, cfg, scale):
+    """Each leaf updated once by ``adamw_update`` and once by the plain
+    arithmetic (``kernels.adamw.plain_leaves``), on clones of its p, m and
+    v, with the same clip scale, learning rate and bias corrections: the
+    largest |kernel - plain| of p, m and v over the leaves, and the leaves
+    that differ in any bit (the kernel gives the plain bits)."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+    _, lr, bc1, bc2 = adamw.step_scalars(state, cfg)
+    args = kadamw.update_args(cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    err, differ = dict(p=0.0, m=0.0, v=0.0), []
+    for n, p in params.items():
+        sides = [dict(p=p.clone(), m=state["mu"][n].clone(),
+                      v=state["nu"][n].clone()) for _ in range(2)]
+        k, q = sides
+        kadamw.adamw_update(k["p"], grads[n], k["m"], k["v"], scale, lr, bc1,
+                            bc2, args)
+        kadamw.plain_leaves({n: grads[n]}, {n: q["m"]}, {n: q["v"]},
+                            {n: q["p"]}, scale, lr, bc1, bc2, cfg)
+        for t in err:
+            err[t] = max(err[t], (k[t].float() - q[t].float()).abs().max()
+                         .item())
+        if not all(torch.equal(k[t], q[t]) for t in err):
+            differ.append(n)
+        del sides, k, q
+    return err, differ
+
+
+def adamw_kernels(peaks, smi):
+    """AdamW's two kernels over each train cell's leaf set (``ADAMW_CELLS``:
+    the model at the cell's depth after one train step, whose AdamW
+    launches are counted; gradients drawn in fp32) beside the plain
+    version: the whole update by kernels and by the plain version, each
+    kernel alone and its plain part (the norm over every gradient leaf;
+    the leaves' update given the scalars), ms by CUDA events with L2
+    flushed; their bounds (bytes at the card's data-sheet rate: 4 B a
+    parameter for the norm, 24 B for the update's reads and writes); the
+    host's time to enqueue each; the norm against an fp64 sum (1e-6
+    relative) and every leaf's p, m and v against the plain arithmetic
+    (equal bits); and one profiled update's kernels: only ``adamw_sumsq``
+    (a launch a leaf and its reduction), ``adamw_update`` (a launch a leaf)
+    and the schedule's scalar ops."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+    bw = peaks[0]
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    cfg = adamw.AdamWConfig(**ADAMW_CELL_CONFIG)
+    out = {}
+    for tag, arch, layers in ADAMW_CELLS:
+        params, state, launches = adamw_cell_step(arch, layers, cfg)
+        check(launches == {"adamw_sumsq": len(params),
+                           "adamw_update": len(params)},
+              f"{tag}: a train step's AdamW launches {launches}, not one a "
+              f"leaf of {len(params)}")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        grads = {n: torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+                 for n, p in params.items()}
+        n = sum(p.numel() for p in params.values())
+        norm_bytes = sum(t.numel() * t.element_size() for t in grads.values())
+        update_bytes = sum(2 * p.numel() * p.element_size()
+                           + grads[k].numel() * grads[k].element_size()
+                           + 16 * p.numel() for k, p in params.items())
+        glist = list(grads.values())
+        mu, nu = state["mu"], state["nu"]
+        _, lr, bc1, bc2 = adamw.step_scalars(state, cfg)
+        scale = kadamw.adamw_sumsq(glist, cfg.clip_norm)[1]
+        args = kadamw.update_args(cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+
+        def whole():
+            kadamw.update(grads, mu, nu, params, cfg, lr, bc1, bc2)
+
+        def sumsq():
+            kadamw.adamw_sumsq(glist, cfg.clip_norm)
+
+        def leaves_only():
+            for k, p in params.items():
+                kadamw.adamw_update(p, grads[k], mu[k], nu[k], scale, lr,
+                                    bc1, bc2, args)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec = dict(
+            cell=tag, arch=arch, layers=layers, leaves=len(params),
+            parameters=n, norm_bytes=norm_bytes, update_bytes=update_bytes,
+            launches=launches, ms=time_ms(whole, ADAMW_ITERS, flush),
+            sumsq_ms=time_ms(sumsq, ADAMW_ITERS, flush),
+            update_ms=time_ms(leaves_only, ADAMW_ITERS, flush))
+        rec["kernels_peak_extra_gb"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        rec.update(
+            plain_ms=time_ms(lambda: kadamw.update_plain(
+                grads, mu, nu, params, cfg, lr, bc1, bc2), ADAMW_ITERS,
+                flush),
+            sumsq_plain_ms=time_ms(lambda: kadamw.plain_norm(
+                glist, cfg.clip_norm), ADAMW_ITERS, flush),
+            update_plain_ms=time_ms(lambda: kadamw.plain_leaves(
+                grads, mu, nu, params, scale, lr, bc1, bc2, cfg),
+                ADAMW_ITERS, flush))
+        rec["plain_peak_extra_gb"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+        rec.update(
+            bound_ms=(norm_bytes + update_bytes) / bw * 1e3,
+            sumsq_bound_ms=norm_bytes / bw * 1e3,
+            update_bound_ms=update_bytes / bw * 1e3,
+            host_ms=host_us(whole, calls=2) / 1e3,
+            sumsq_host_ms=host_us(sumsq, calls=2) / 1e3,
+            update_host_ms=host_us(leaves_only, calls=2) / 1e3)
+        for part in ("", "sumsq_", "update_"):
+            rec[f"{part}bound_share"] = rec[f"{part}bound_ms"] \
+                / rec[f"{part}ms"]
+        gnorm = kadamw.adamw_sumsq(glist, cfg.clip_norm)[0]
+        want = math.sqrt(sum(float(torch.sum(torch.square(piece.double())))
+                             for t in glist
+                             for piece in t.reshape(-1).split(1 << 26)))
+        rec["gnorm"], rec["gnorm_fp64"] = float(gnorm), want
+        rec["sumsq_max_abs_err"] = abs(float(gnorm) - want)
+        check(rec["sumsq_max_abs_err"] <= 1e-6 * want,
+              f"{tag}: adamw_sumsq's norm {float(gnorm)} against fp64 "
+              f"{want}")
+        err, differ = adamw_leaf_errors(params, grads, state, cfg, scale)
+        rec["update_max_abs_err"] = err
+        check(not differ, f"{tag}: adamw_update differs from the plain "
+              f"arithmetic at {differ} (max abs err {err})")
+        rec.update(**adamw_kernel_names(params, grads, state, cfg), card=smi)
+        check(rec["update_launches"] == launches,
+              f"{tag}: one update launched {rec['update_launches']}, a "
+              f"train step {launches}")
+        kernels = rec["kernels"]
+        other = {k: v for k, v in kernels.items() if "adamw_" not in k}
+        check(sum(kernels.values()) - sum(other.values())
+              == 2 * len(params) + 1 and sum(other.values()) <= 16,
+              f"{tag}: the update's device kernels {kernels}")
+        print(f"[adamw] {json.dumps(rec)}", flush=True)
+        out[tag] = rec
+        del params, grads, state, glist, scale, mu, nu, gnorm
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_adamw_worker(card, timeout=900):
+    """``adamw_kernels`` in a process of its own (``--adamw-kernels CARD``):
+    its profiler session is the process's first (a later one loses kernels,
+    as ``run_train_workers`` finds) and the card's memory is all its own.
+    Its output is echoed; returns its records by cell, failing unless it
+    exits 0 with one for each of ``ADAMW_CELLS``."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--adamw-kernels",
+         card], stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=timeout)
+    print(proc.stdout, end="", flush=True)
+    recs = {rec["cell"]: rec for rec in (
+        json.loads(line.split(" ", 1)[1])
+        for line in proc.stdout.splitlines() if line.startswith("[adamw] "))}
+    check(proc.returncode == 0 and list(recs) == [c[0] for c in ADAMW_CELLS],
+          f"adamw_kernels' process exited {proc.returncode} with records "
+          f"for {list(recs)}")
+    return recs
+
+
+def adamw_entries(recs, smi):
+    """The kernels line's entries of ``adamw_kernels``' records: each
+    kernel over a train cell's leaves (ms alone, its bound, its plain part
+    and its host time; its error against fp64 or the plain arithmetic),
+    with the launches a train step made."""
+    entries = []
+    for tag, rec in recs.items():
+        for kernel in ("sumsq", "update"):
+            err = rec[f"{kernel}_max_abs_err"]
+            entries.append(dict(
+                name=f"adamw_{kernel}@{tag}", route="cuda",
+                source="src/repro_torch/csrc/adamw.cu", replaces=None,
+                launches=rec["launches"][f"adamw_{kernel}"],
+                path="train", max_abs_err=max(err.values())
+                if isinstance(err, dict) else err,
+                ms=rec[f"{kernel}_ms"], plain_ms=rec[f"{kernel}_plain_ms"],
+                bound_ms=rec[f"{kernel}_bound_ms"], bound_by="bytes",
+                bound_share=rec[f"{kernel}_bound_share"],
+                host_ms=rec[f"{kernel}_host_ms"], leaves=rec["leaves"],
+                card=smi))
+    return entries
+
+
 def train13_entries(records, smi):
     """The kernels line's entries of phase 13's records: each backward
     kernel at each family's training shape, with the launches the family's
@@ -3954,6 +4223,9 @@ def main(argv=()):
     if len(argv) == 3 and argv[0] == "--train-worker":
         train_worker(*argv[1:])
         return 0
+    if len(argv) == 2 and argv[0] == "--adamw-kernels":
+        adamw_kernels(peaks_for(torch.cuda.get_device_name(0))[1], argv[1])
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
@@ -3973,6 +4245,7 @@ def main(argv=()):
     families = phase6_families()
     train = phase9_train(peaks, smi)
     families_train = phase13_train(peaks, smi)
+    adamw_recs = run_adamw_worker(smi)
     inproc, inproc_s, fires = phase4_verify()
     phase12_audit(inproc, smi, fires)
     drivers = phase11_drivers(inproc, smi)
@@ -4134,6 +4407,8 @@ def main(argv=()):
             dtype=rec["dtype"], **fma_bound(rec, "backward_"), card=smi))
     # the backward kernels at each family's training shapes (phase 13)
     kernels += train13_entries(families_train["records"], smi)
+    # AdamW's kernels over the train cells' leaves
+    kernels += adamw_entries(adamw_recs, smi)
     # K1 on serve_decode's path (phase 11): gemma3-12b's decode rows
     rec = next(r for r in records if r["kernel"] == "rmsnorm"
                and r["shape"] == [B_PROMPT, GEMMA12_D])

@@ -29,8 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 # -lcuda is needed.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "flash_attention_sm90", "flash_attention_bwd",
-           "flash_attention_bwd_sm90", "rmsnorm")
+SOURCES = ("adamw", "flash_attention", "flash_attention_sm90",
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "rmsnorm")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 

@@ -15,9 +15,11 @@ counts its launches (``launch_counts``), on both branches: RMSNorm in all
 and per launch plan (``rmsnorm_rows``, ``rmsnorm_ring``), its backward
 (``rmsnorm_bwd``); attention per route (bf16 on ``wgmma``, fp32 in
 3xTF32 on ``mma.sync``), with ``flash_attention`` their sum, and each route's backward
-(``flash_attention_bwd_bf16``, ``flash_attention_bwd_fp32``). K2 takes a
-causal sliding window (``window``, 0 = none) on every branch; a window
-without the causal mask raises.
+(``flash_attention_bwd_bf16``, ``flash_attention_bwd_fp32``); and AdamW's
+two kernels (``adamw_sumsq``, ``adamw_update``, a launch a leaf each),
+which ``optim.adamw.update`` routes by the same rule (``kernels/adamw.py``).
+K2 takes a causal sliding window (``window``, 0 = none) on every branch; a
+window without the causal mask raises.
 
 A DTensor (a parameter or activation on a ``DeviceMesh``) or a fake tensor
 (the dry run's ``FakeTensorMode``) takes neither branch: it goes through
@@ -41,17 +43,18 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
-from ..sharding.specs import heads_local, is_dtensor
+from ..sharding.specs import heads_local, is_dtensor, is_wrapped
+from . import adamw as _aw
 from . import flash_attention as _fa
 from . import rmsnorm as _rn
 
 _KERNELS = {"rmsnorm": _rn.rmsnorm, "rmsnorm_bwd": _rn.rmsnorm_bwd,
             **{f"flash_attention_{r}": fn for r, fn in _fa.KERNELS.items()},
             **{f"flash_attention_bwd_{r}": fn
-               for r, fn in _fa.BACKWARD_KERNELS.items()}}
+               for r, fn in _fa.BACKWARD_KERNELS.items()},
+            "adamw_sumsq": _aw.adamw_sumsq, "adamw_update": _aw.adamw_update}
 
 
 def _route(t, name):
@@ -65,11 +68,6 @@ def _route(t, name):
 def _recorded(*ts) -> bool:
     """Whether autograd records a call on ``ts``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _wrapped(t) -> bool:
-    """A DTensor or a fake tensor: the custom op's business."""
-    return isinstance(t, FakeTensor) or is_dtensor(t)
 
 
 def _rmsnorm_direct(x, scale, eps):
@@ -341,7 +339,7 @@ def _flash_backward_flop(q_shape, k_shape, v_shape, out_shape_, lse_shape,
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
-    if _wrapped(x):
+    if is_wrapped(x):
         if is_dtensor(x):
             _register_sharding_rules()
         return rmsnorm_op(x, scale, eps)
@@ -364,15 +362,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             return heads_local(lambda ql, kl, vl: flash_attention_op(
                 ql, kl, vl, window, causal, lse)[0], q, k, v)
         return flash_attention_op(q, k, v, window, causal, lse)[0]
-    if _wrapped(q):
+    if is_wrapped(q):
         return flash_attention_op(q, k, v, window, causal,
                                   _recorded(q, k, v))[0]
     return _flash_direct(q, k, v, causal, window)
 
 
 def launch_counts() -> dict:
-    """Launches by kernel (forward and backward), RMSNorm's by plan too,
-    and ``flash_attention``, both forward routes together."""
+    """Launches by kernel (forward and backward; AdamW's two, a leaf
+    each), RMSNorm's by plan too, and ``flash_attention``, both forward
+    routes together."""
     counts = {name: fn.launches for name, fn in _KERNELS.items()}
     counts.update({f"rmsnorm_{name}": n
                    for name, n in _rn.rmsnorm.plan_launches.items()})

@@ -16,14 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..kernels import adamw as kernels
 from ..obs import trace as obs_trace
-from ..sharding.specs import is_dtensor
-
-# A leaf's update in fp32 makes a few temporaries of the leaf's size; a leaf
-# of more elements than this is updated a run of rows at a time, so that
-# they stay within ~5 x 256 MB (a 256k-row embedding's would be ~40 GB).
-# Each element's arithmetic is the same either way.
-UPDATE_CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -56,59 +50,30 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm
 
 
+def step_scalars(state: dict, cfg: AdamWConfig):
+    """``(step, lr, bc1, bc2)`` of the next update: the new step count, its
+    learning rate and the moments' bias corrections, 0-d on the step
+    count's device."""
+    step = state["step"] + 1
+    t = step.float()
+    return step, schedule(cfg, step), 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
+
+
 @torch.no_grad()
 def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
     """One AdamW step. ``grads`` and ``params`` map the same names to
     tensors; returns ``(params, state, grad_norm)`` with ``params`` and
     ``state`` updated in place. ``grad_norm`` (0-d fp32) is the global
-    norm before clipping, 0 when clipping is off. Nothing here waits for
-    the device. Span: ``rt.adamw.update``."""
+    norm before clipping, 0 when clipping is off. Plain CUDA tensors take
+    the kernels (``kernels.adamw.update``), which launch or raise; the
+    CPU, DTensors, fake and meta tensors take their plain version
+    (``kernels.adamw.update_plain``). Nothing here waits for the device.
+    Span: ``rt.adamw.update``."""
     with obs_trace.span("rt.adamw.update"):
-        return _update(grads, state, params, cfg)
-
-
-def _update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
-    step = state["step"] + 1
-    scale = None
-    if cfg.clip_norm:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(gp.float()))
-                               for g in grads.values()
-                               for (gp,) in _pieces(g)))
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    else:
-        gnorm = torch.zeros((), device=step.device)
-    b1, b2 = cfg.b1, cfg.b2
-    t = step.float()
-    bc1 = 1 - b1 ** t
-    bc2 = 1 - b2 ** t
-    lr = schedule(cfg, step)
-    # one parameter (or run of its rows) at a time: its fp32 temporaries
-    # are freed before the next one's are made
-    for n, p in params.items():
-        for pp, gp, m, v in _pieces(p, grads[n], state["mu"][n],
-                                    state["nu"][n]):
-            g = gp.float()
-            if scale is not None:
-                g = g * scale
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            pf = pp.float()
-            if cfg.weight_decay:
-                delta = delta + cfg.weight_decay * pf
-            pp.copy_((pf - lr * delta).to(pp.dtype))
-    state["step"] = step
-    return params, state, gnorm
-
-
-def _pieces(*ts):
-    """``ts`` (tensors of one shape) whole, or, past UPDATE_CHUNK elements,
-    as views of runs of their leading rows of at most UPDATE_CHUNK elements
-    (or one row); a DTensor is left whole, as its shards are."""
-    t = ts[0]
-    if t.numel() <= UPDATE_CHUNK or t.dim() == 0 or is_dtensor(t):
-        yield ts
-        return
-    rows = max(1, UPDATE_CHUNK * t.shape[0] // t.numel())
-    for i in range(0, t.shape[0], rows):
-        yield tuple(x[i:i + rows] for x in ts)
+        step, lr, bc1, bc2 = step_scalars(state, cfg)
+        run = kernels.update if kernels.takes_kernels(params, grads) \
+            else kernels.update_plain
+        gnorm = run(grads, state["mu"], state["nu"], params, cfg, lr, bc1,
+                    bc2)
+        state["step"] = step
+        return params, state, gnorm

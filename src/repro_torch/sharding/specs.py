@@ -31,6 +31,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.spmd import PartitionSpec
 
@@ -185,6 +186,13 @@ def is_dtensor(x) -> bool:
     before it is imported)."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def is_wrapped(x) -> bool:
+    """Whether ``x`` is a DTensor or a fake tensor (the dry run's
+    ``FakeTensorMode``): a tensor whose ops its subclass dispatches, which
+    no hand-written kernel takes."""
+    return isinstance(x, FakeTensor) or is_dtensor(x)
 
 
 class _Ctx(threading.local):

@@ -862,6 +862,202 @@ def test_launch_train_on_the_card(cuda_device, tmp_path):
     assert (tmp_path / "ckpt_00000011.msgpack").exists()
 
 
+# --- AdamW's kernels against their plain version --------------------------
+
+ADAMW_PAIRS = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.float32)]
+# leaf sizes; "zero" gets a zero gradient, "offset" lies one element into
+# its buffer (off the 16-byte grain: the kernel's scalar loop)
+ADAMW_SIZES = {"one": 1, "seven": 7, "row": 4096, "ragged": 4096 * 11 + 3,
+               "zero": 4096, "offset": 4097}
+
+
+def _adamw_leaves(device, pair, sizes, seed):
+    """(params, grads) of ``sizes``, drawn from ``seed``: the same values,
+    shapes and offsets on every call."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    params, grads = {}, {}
+    for name, n in sizes.items():
+        off = int(name == "offset")
+        params[name] = torch.randn(n + off, generator=g,
+                                   device=device).to(pair[0])[off:]
+        grads[name] = (torch.randn(n, generator=g, device=device)
+                       * 0.5).to(pair[1])
+    if "zero" in grads:
+        grads["zero"].zero_()
+    return params, grads
+
+
+def _adamw_kernel_step(params, grads, state, cfg, gnorm):
+    """One update by ``adamw_update`` a leaf, given the plain version's
+    scalars: its norm's scale and its schedule."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+    step, lr, bc1, bc2 = adamw.step_scalars(state, cfg)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) \
+        if cfg.clip_norm else None
+    args = kadamw.update_args(cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    for n, p in params.items():
+        kadamw.adamw_update(p, grads[n], state["mu"][n], state["nu"][n],
+                            scale, lr, bc1, bc2, args)
+    state["step"] = step
+
+
+def _adamw_plain_step(grads, state, params, cfg):
+    """One update by the plain version, as ``optim.adamw.update`` makes it;
+    returns the norm."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+    step, lr, bc1, bc2 = adamw.step_scalars(state, cfg)
+    gnorm = kadamw.update_plain(grads, state["mu"], state["nu"], params, cfg,
+                                lr, bc1, bc2)
+    state["step"] = step
+    return gnorm
+
+
+def _assert_adamw_bits(kp, ks, pp, ps):
+    for n in pp:
+        for what, got, want in (("p", kp[n], pp[n]), ("m", ks["mu"][n],
+                                                      ps["mu"][n]),
+                                ("v", ks["nu"][n], ps["nu"][n])):
+            assert torch.equal(got, want), (n, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.0, 0.1], ids=["no_decay", "decay"])
+@pytest.mark.parametrize("clip", [0.0, 1e6, 0.05],
+                         ids=["no_clip", "clip", "clip_biting"])
+@pytest.mark.parametrize("pair", ADAMW_PAIRS,
+                         ids=["bf16_fp32", "bf16_bf16", "fp32_fp32"])
+def test_adamw_update_kernel_is_the_plain_version(cuda_device, pair, clip,
+                                                  decay):
+    """Three steps of ``adamw_update`` a leaf against the plain version on
+    the card, given the same scalars: every parameter and both moments
+    equal bit for bit, at leaves of 1, 7, 4096 and 4096 * 11 + 3 elements,
+    a zero gradient and a leaf off the 16-byte grain."""
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(clip_norm=clip, weight_decay=decay,
+                            warmup_steps=2)
+    pp, _ = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, 0)
+    kp, _ = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, 0)
+    assert kp["offset"].data_ptr() % 16
+    ps, ks = adamw.init(pp), adamw.init(kp)
+    for i in range(3):
+        _, grads = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, i + 1)
+        gnorm = _adamw_plain_step(grads, ps, pp, cfg)
+        _adamw_kernel_step(kp, grads, ks, cfg, gnorm)
+        torch.cuda.synchronize()
+        _assert_adamw_bits(kp, ks, pp, ps)
+    assert int(ks["step"]) == int(ps["step"]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ADAMW_PAIRS,
+                         ids=["bf16_fp32", "bf16_bf16", "fp32_fp32"])
+def test_adamw_update_kernel_on_a_leaf_past_2_31_bytes(cuda_device, pair):
+    """A leaf whose moments pass 2**31 bytes (64-bit indices), ragged, with
+    the clip biting and weight decay: bit for bit the plain version's (its
+    runs of rows past UPDATE_CHUNK)."""
+    from repro_torch.optim import adamw
+    sizes = {"big": (1 << 29) + 3}
+    cfg = adamw.AdamWConfig(clip_norm=0.05, warmup_steps=1)
+    pp, grads = _adamw_leaves(cuda_device, pair, sizes, 0)
+    # (rows, 1): the plain version updates runs of rows past UPDATE_CHUNK
+    pp, grads = ({n: t.view(-1, 1) for n, t in d.items()}
+                 for d in (pp, grads))
+    kp = {n: p.clone() for n, p in pp.items()}
+    ps, ks = adamw.init(pp), adamw.init(kp)
+    assert ps["mu"]["big"].numel() * 4 > 1 << 31
+    gnorm = _adamw_plain_step(grads, ps, pp, cfg)
+    _adamw_kernel_step(kp, grads, ks, cfg, gnorm)
+    torch.cuda.synchronize()
+    _assert_adamw_bits(kp, ks, pp, ps)
+    del pp, kp, ps, ks, grads
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_adamw_sumsq_is_the_fp64_norm_and_repeats(cuda_device):
+    """The global norm of fp32 and bf16 leaves (one of 2**27 elements, one
+    ragged, one of 7) within 1e-6 relative of an fp64 sum, the scale
+    min(clip / (norm + 1e-9), 1), and the same bits from a second call."""
+    from repro_torch.kernels import adamw as kadamw
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    grads = [torch.randn(n, generator=g, device=cuda_device).to(dt)
+             for n, dt in (((1 << 27), torch.float32),
+                           (4096 * 11 + 3, torch.bfloat16),
+                           (7, torch.float32), (5000, torch.bfloat16))]
+    want = float(torch.sqrt(sum((t.double() ** 2).sum() for t in grads)))
+    gnorm, scale = kadamw.adamw_sumsq(grads, 1.0)
+    again = kadamw.adamw_sumsq(grads, 1.0)
+    torch.cuda.synchronize()
+    assert abs(float(gnorm) - want) <= 1e-6 * want
+    assert float(scale) == pytest.approx(1.0 / (want + 1e-9), rel=1e-6)
+    assert torch.equal(gnorm, again[0]) and torch.equal(scale, again[1])
+    assert float(kadamw.adamw_sumsq(grads[2:3], 1e9)[1]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [0.0, 1.0], ids=["no_clip", "clip"])
+def test_adamw_update_launches_a_kernel_a_leaf_without_a_sync(cuda_device,
+                                                              clip):
+    """``optim.adamw.update`` on CUDA leaves under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync; each
+    kernel launches once a leaf (the norm's only where clipping is on),
+    and the norm and the updated leaves are the plain version's."""
+    from repro_torch.optim import adamw
+    pair = ADAMW_PAIRS[0]
+    cfg = adamw.AdamWConfig(clip_norm=clip)
+    kp, grads = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, 0)
+    pp, _ = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, 0)
+    ks, ps = adamw.init(kp), adamw.init(pp)
+    warm, _ = _adamw_leaves(cuda_device, pair, ADAMW_SIZES, 0)
+    adamw.update(grads, adamw.init(warm), warm, cfg)  # loads the library
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, gnorm = adamw.update(grads, ks, kp, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = ops.launch_counts()
+    assert counts["adamw_update"] == len(kp)
+    assert counts["adamw_sumsq"] == (len(kp) if clip else 0)
+    want = _adamw_plain_step(grads, ps, pp, cfg)
+    torch.testing.assert_close(gnorm, want, rtol=1e-6, atol=0)
+    for n in kp:
+        torch.testing.assert_close(ks["mu"][n], ps["mu"][n], rtol=1e-6,
+                                   atol=1e-12)
+        torch.testing.assert_close(kp[n].float(), pp[n].float(), rtol=1e-2,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_adamw_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A leaf that is not contiguous, gradients of another shape, and a
+    (parameter, gradient) dtype pair the kernels have no instance for
+    raise, with nothing launched and nothing falling back."""
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig()
+
+    def attempt(p, g):
+        ops.reset_launch_counts()
+        params = {"w": p}
+        adamw.update({"w": g}, adamw.init(params), params, cfg)
+
+    dev = cuda_device
+    with pytest.raises(ValueError, match="not contiguous"):
+        attempt(torch.zeros(8, 4, device=dev).t(), torch.ones(4, 8, device=dev))
+    with pytest.raises(ValueError, match="shapes"):
+        attempt(torch.zeros(4, 8, device=dev), torch.ones(8, 4, device=dev))
+    for p_dt, g_dt in ((torch.float32, torch.bfloat16),
+                       (torch.float16, torch.float32)):
+        with pytest.raises(TypeError, match="the kernels take"):
+            attempt(torch.zeros(4, 8, dtype=p_dt, device=dev),
+                    torch.ones(4, 8, dtype=g_dt, device=dev))
+    assert not any(ops.launch_counts().values())
+
+
 @pytest.fixture
 def one_rank_mesh(cuda_device):
     """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""

@@ -538,7 +538,8 @@ def test_library_name_hashes_included_headers(tmp_path):
 def test_every_source_builds_from_the_package():
     names = {p.name for n in build.SOURCES
              for p in build.inputs(build.CSRC / f"{n}.cu")}
-    assert names == {"flash_attention.cu", "flash_attention_sm90.cu",
+    assert names == {"adamw.cu", "flash_attention.cu",
+                     "flash_attention_sm90.cu",
                      "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
                      "rmsnorm.cu", "sm90_ptx.cuh", "tf32x3.cuh"}
 
@@ -581,7 +582,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                    "flash_attention_bf16": 0,
                                    "flash_attention_fp32": 0,
                                    "flash_attention_bwd_bf16": 0,
-                                   "flash_attention_bwd_fp32": 0}
+                                   "flash_attention_bwd_fp32": 0,
+                                   "adamw_sumsq": 0, "adamw_update": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -332,6 +332,64 @@ def test_adamw_casts_back_to_bf16():
         pytest.approx(3e-6)
 
 
+@pytest.mark.parametrize("where", ["cpu", "fake", "meta"])
+def test_adamw_takes_the_plain_version_off_the_card(monkeypatch, where):
+    """CPU tensors, fake tensors (made as the dry run's CPU tests make
+    theirs) and meta tensors take the plain version: the kernels' path is
+    never entered and no ``adamw_*`` launch is counted; the update still
+    runs in place and returns the step's norm. A fake CUDA leaf set would
+    keep the plain version too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import adamw as kadamw
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernels' path was taken")
+    monkeypatch.setattr(kadamw, "update", refuse)
+
+    def leaves(device):
+        return ({"w": torch.zeros(4, 8, dtype=torch.bfloat16, device=device),
+                 "b": torch.zeros(8, device=device)},
+                {"w": torch.ones(4, 8, device=device),
+                 "b": torch.ones(8, device=device)})
+
+    def run(device):
+        params, grads = leaves(device)
+        state = adamw.init(params)
+        _, state, gnorm = adamw.update(grads, state, params,
+                                       adamw.AdamWConfig())
+        return params, state, gnorm
+    ops.reset_launch_counts()
+    if where == "fake":
+        with FakeTensorMode():
+            params, state, gnorm = run("cpu")
+            assert not kadamw.takes_kernels(*leaves("cuda"))
+    else:
+        params, state, gnorm = run(where)
+    counts = ops.launch_counts()
+    assert counts["adamw_sumsq"] == counts["adamw_update"] == 0
+    assert state["step"].shape == () and gnorm.shape == ()
+    if where == "cpu":
+        assert int(state["step"]) == 1
+        assert float(gnorm) == pytest.approx(40 ** 0.5)
+        assert bool((params["w"] != 0).all())
+
+
+def test_adamw_kernel_constants_are_the_plain_scalars():
+    """The kernel's constants are the plain version's Python scalars as
+    fp32 (``1 - b1`` formed in double, then rounded once), and only plain
+    CUDA tensors would take the kernels."""
+    from repro_torch.kernels import adamw as kadamw
+    cfg = adamw.AdamWConfig()
+    a = kadamw.update_args(cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    for got, want in ((a.b1, cfg.b1), (a.omb1, 1 - cfg.b1), (a.b2, cfg.b2),
+                      (a.omb2, 1 - cfg.b2), (a.eps, cfg.eps),
+                      (a.wd, cfg.weight_decay)):
+        assert got == float(np.float32(want))
+    assert a.decay == 1
+    assert kadamw.update_args(0.9, 0.95, 1e-8, 0.0).decay == 0
+    assert not kadamw.takes_kernels({"w": torch.zeros(2)})
+
+
 def test_init_state_is_trainable():
     model, opt = init_state(registry.load_config("gpt").reduced(), 0, **CPU)
     assert all(p.requires_grad for p in model.parameters())

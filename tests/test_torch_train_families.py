@@ -46,6 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro.models import registry as jregistry
 from repro.models import ssm as jssm
+from repro_torch.kernels import adamw as kernels_adamw
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.models import registry
@@ -456,7 +457,7 @@ def test_adamw_updates_a_large_leaf_in_runs_of_rows(monkeypatch, clip_norm):
     cfg = adamw.AdamWConfig(clip_norm=clip_norm, warmup_steps=1)
 
     def run(chunk):
-        monkeypatch.setattr(adamw, "UPDATE_CHUNK", chunk)
+        monkeypatch.setattr(kernels_adamw, "UPDATE_CHUNK", chunk)
         params, _ = _adamw_trees(ADAMW_SHAPES)
         state = adamw.init(params)
         norms = []
@@ -482,7 +483,7 @@ def test_adamw_temporaries_stay_within_a_run(monkeypatch):
     and the step's terms) holds at most UPDATE_CHUNK elements, whatever the
     leaf's size."""
     from torch.utils._python_dispatch import TorchDispatchMode
-    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 512)
+    monkeypatch.setattr(kernels_adamw, "UPDATE_CHUNK", 512)
 
     class Largest(TorchDispatchMode):
         most = 0
@@ -500,3 +501,67 @@ def test_adamw_temporaries_stay_within_a_run(monkeypatch):
     with Largest():
         adamw.update(grads, state, params, adamw.AdamWConfig())
     assert 0 < Largest.most <= 512
+
+
+@pytest.mark.parametrize("clip", [True, False], ids=["clip", "no_clip"])
+def test_expected_train_launches_count_adamw_a_leaf(clip):
+    """A train step's expected launches on the card hold AdamW's two
+    kernels, a launch a leaf each (the norm's only with clipping), beside
+    K1's and K2's, which the leaves leave as they were."""
+    cfg = chip_smoke.reduced_config(registry.load_config("mixtral-8x7b"))
+    model, _ = init_state(cfg, 0, "cpu")
+    leaves = len(list(model.parameters()))
+    want = chip_smoke.expected_train_launches(cfg, leaves=leaves, clip=clip)
+    assert want["adamw_update"] == leaves > 0
+    assert want["adamw_sumsq"] == (leaves if clip else 0)
+    rest = {k: n for k, n in want.items() if not k.startswith("adamw_")}
+    assert rest == chip_smoke.expected_train_launches(cfg)
+
+
+def test_adamw_entries_give_each_kernel_its_own_parts():
+    """The kernels line's AdamW entries: each kernel's own ms, bound,
+    plain part, host time and error (the norm's against fp64, the
+    update's the largest of p, m and v against the plain arithmetic), and
+    the launches a train step made."""
+    rec = dict(leaves=3, launches={"adamw_sumsq": 3, "adamw_update": 3},
+               sumsq_ms=1.0, update_ms=6.0, sumsq_plain_ms=9.0,
+               update_plain_ms=50.0, sumsq_bound_ms=0.9,
+               update_bound_ms=5.0, sumsq_bound_share=0.9,
+               update_bound_share=5 / 6, sumsq_host_ms=0.1,
+               update_host_ms=0.2, sumsq_max_abs_err=1e-9,
+               update_max_abs_err=dict(p=0.0, m=0.0, v=0.0))
+    got = {e["name"]: e for e in chip_smoke.adamw_entries({"cell": rec}, {})}
+    assert set(got) == {"adamw_sumsq@cell", "adamw_update@cell"}
+    for kernel in ("sumsq", "update"):
+        e = got[f"adamw_{kernel}@cell"]
+        assert (e["ms"], e["plain_ms"], e["bound_ms"], e["host_ms"]) == (
+            rec[f"{kernel}_ms"], rec[f"{kernel}_plain_ms"],
+            rec[f"{kernel}_bound_ms"], rec[f"{kernel}_host_ms"])
+        assert e["launches"] == 3
+    assert got["adamw_sumsq@cell"]["max_abs_err"] == 1e-9
+    assert got["adamw_update@cell"]["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("rc,cells", [(0, 2), (0, 1), (1, 2)],
+                         ids=["whole", "a_cell_missing", "failed"])
+def test_adamw_worker_gives_its_records_by_cell(monkeypatch, rc, cells):
+    """``run_adamw_worker`` runs ``--adamw-kernels CARD`` in a process of
+    its own and gives its ``[adamw]`` records by cell; a process that exits
+    non-zero or leaves a cell out fails the check."""
+    import json
+    import subprocess
+    tags = [c[0] for c in chip_smoke.ADAMW_CELLS]
+    out = "built\n" + "".join(f"[adamw] {json.dumps(dict(cell=t, ms=1.5))}\n"
+                              for t in tags[:cells])
+
+    def fake_run(cmd, **kwargs):
+        assert cmd[-2:] == ["--adamw-kernels", "card"]
+        return subprocess.CompletedProcess(cmd, rc, out)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    if rc or cells < len(tags):
+        with pytest.raises(RuntimeError, match="adamw_kernels' process"):
+            chip_smoke.run_adamw_worker("card")
+    else:
+        got = chip_smoke.run_adamw_worker("card")
+        assert list(got) == tags
+        assert all(got[t] == dict(cell=t, ms=1.5) for t in tags)
