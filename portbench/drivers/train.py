@@ -50,7 +50,7 @@ def _batch(run, st):
 def setup(run) -> State:
     from repro_torch.models import registry
     from repro_torch.optim import adamw
-    from repro_torch.train import make_grad_fn, make_train_step
+    from repro_torch.train import make_train_step
     st = State()
     cfg = run.port_config()
     st.tcfg = _opt_config(run)
@@ -63,7 +63,6 @@ def setup(run) -> State:
     params = dict(model.named_parameters())
     opt = adamw.init(params)
     st.step = run.entry(make_train_step(cfg, st.tcfg))
-    st.grad_fn = make_grad_fn(cfg, st.tcfg)
     st.data = torch.Generator(device=run.device).manual_seed(
         mixes.sub_seed(run.seed, "data"))
     first = flat.clone()
@@ -118,28 +117,12 @@ def window(run, st):
 
 
 def trace(run, st):
-    """The profiled stretch (``trace_steps`` steps, one profiler session),
-    then ``optim_pairs`` pairs of the gradient alone and a whole step on
-    one batch, for ``optim_ms``."""
+    """The profiled stretch: ``trace_steps`` steps, one profiler
+    session."""
     def one():
         st.model, st.opt, _ = st.step(st.model, st.opt, _batch(run, st))
     run.stretch = tracing.profile(run, one, run.mix["trace_steps"],
                                   [run.mix["seq"]] * rows(run.mix))
-    grad_ms, step_ms = [], []
-    for _ in range(run.mix["optim_pairs"]):
-        batch = _batch(run, st)
-        t0 = time.perf_counter()
-        grads, _ = st.grad_fn(st.model, batch)
-        run.sync()
-        t1 = time.perf_counter()
-        del grads
-        st.model, st.opt, _ = st.step(st.model, st.opt, batch)
-        run.sync()
-        t2 = time.perf_counter()
-        grad_ms.append((t1 - t0) * 1e3)
-        step_ms.append((t2 - t1) * 1e3)
-    run.stretch["optim_ms"] = statistics.median(step_ms) \
-        - statistics.median(grad_ms)
 
 
 SAMPLE = 1 << 16     # elements a leaf's first gradient is compared at
@@ -269,7 +252,7 @@ def check(run, st):
     """Frees the program's state, then runs the reference's steps and
     compares."""
     prog = st.first
-    st.model = st.opt = st.step = st.grad_fn = st.flat = None
+    st.model = st.opt = st.step = st.flat = None
     free_device()
     ref = reference_readings(run)
     run.readings = dict(program=prog, reference=ref)
